@@ -1,0 +1,45 @@
+"""Lite student architecture kwargs for distilled models (a copy of
+``build_student_arch_kwargs`` and its helpers from
+fast_nnunet_tpu/models/students.py): features f -> max(f // r, 8) per stage,
+residual block counts mapped by strategy."""
+from typing import Sequence
+
+MIN_STUDENT_FEATURES = 8
+
+
+def reduce_features(features_per_stage: Sequence[int],
+                    reduction_factor: int) -> tuple:
+    return tuple(max(int(f) // reduction_factor, MIN_STUDENT_FEATURES)
+                 for f in features_per_stage)
+
+
+def apply_block_strategy(n_blocks_per_stage: Sequence[int],
+                         strategy: str) -> tuple:
+    """Map teacher residual block counts to the student's
+    (reduce / keep / increase / adaptive)."""
+    blocks = [int(b) for b in n_blocks_per_stage]
+    if strategy == "reduce":
+        return tuple(max(1, b // 2) for b in blocks)
+    if strategy == "keep":
+        return tuple(blocks)
+    if strategy == "increase":
+        return tuple(b + 1 for b in blocks)
+    if strategy == "adaptive":
+        n = len(blocks)
+        return tuple(b if i < n // 2 else max(1, b // 2)
+                     for i, b in enumerate(blocks))
+    raise ValueError(f"Unknown block_reduction_strategy '{strategy}' "
+                     "(expected reduce/keep/increase/adaptive)")
+
+
+def build_student_arch_kwargs(teacher_arch_kwargs: dict,
+                              reduction_factor: int = 2,
+                              block_reduction_strategy: str = "reduce"
+                              ) -> dict:
+    kw = dict(teacher_arch_kwargs)
+    kw["features_per_stage"] = list(reduce_features(kw["features_per_stage"],
+                                                    reduction_factor))
+    if kw.get("n_blocks_per_stage") is not None:
+        kw["n_blocks_per_stage"] = list(apply_block_strategy(
+            kw["n_blocks_per_stage"], block_reduction_strategy))
+    return kw
