@@ -7,20 +7,33 @@ the card. Run from the repository root:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    hand-written kernels from fast_nnunet_tpu_torch/csrc (timed).
-2. Main path at full width: the bone_turbo r=2 distilled student (6 stages,
-   features 16..160, 61 classes; seeded random weights in the JAX package's
-   tree layout, loaded through params_from_jax) over a 512x512x500 synthetic
-   CT at 0.8x0.8x1.0 mm through ``TurboPipeline.predict_volume`` with the
-   engine INI's settings (bf16 compute and accumulator, tile batch 8, air
-   skipping on). One warm run, then timed runs; the first timed run is split
-   into phases by CUDA events and its kernel launch counts are read (each
-   kernel of the path must have launched).
-3. Each kernel at the main path's shapes, on tensors taken from that
-   workload, against its plain PyTorch version (A within f32 summation
-   tolerance, B and C bit for bit, C in both accumulator modes), timed beside
-   its bound, its plain version and, where one exists, a library call.
-4. A small model through the whole pipeline on the card (kernels) and on the
-   CPU (plain versions), fp32 with TF32 off: mask agreement >= 0.999.
+2. s2d main path at full width: the bone_turbo r=2 distilled student (6
+   stages, features 16..160, 61 classes; seeded random weights in the JAX
+   package's tree layout, loaded through params_from_jax) over a 512x512x500
+   synthetic CT at 0.8x0.8x1.0 mm through ``TurboPipeline.predict_volume``
+   with the engine INI's settings (bf16 compute and accumulator, tile batch
+   8, air skipping on). One warm run, then timed runs; the first timed run
+   is split into phases by CUDA events and its kernel launch counts are read
+   (kernels A, B and C must have launched).
+3. Kernels A, B, C at that path's shapes, on tensors taken from it, against
+   their plain PyTorch versions (A within f32 summation tolerance, B and C
+   bit for bit, C in both accumulator modes), timed beside their bound, their
+   plain version and, where one exists, a library call.
+4. Plain full-res path at full width (bench.py's plain contract): the same
+   student as a PlainConvUNet through ``SlidingWindowEngine.
+   predict_segmentation`` on a 512^3 (rand - 0.5) * 2 volume, patch
+   96x96x160, bf16 compute and sweep accumulator, tile batch 8, 4 GiB
+   budget, ``use_fused_accumulate=True``: every accumulate is kernel D. One
+   warm run and two timed runs; the first timed run is phased and counted.
+5. Kernel D on a batch captured from that path against its plain version,
+   bit for bit in bf16 and f32, timed likewise (library yardstick: one
+   ``addcmul_`` per tile).
+6. Small checks, fp32 with TF32 off: the s2d pipeline and the fused plain
+   sweep on a narrow net (on the quantised grid and, with a patch too small
+   for 16-aligned strides, on the reference grid; one kernel D launch per
+   tile batch), cuda (kernels) vs cpu (plain versions), mask agreement
+   >= 0.999; ``NNUNetPredictor`` on the committed golden
+   checkpoint reproduces its frozen mask on the card.
 
 Prints the kernels JSON on its own line, then last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -197,7 +210,14 @@ def main() -> int:
 
     # --------------------------------------- kernels at the main path's shapes
     rows = kernel_checks(torch, cap, engine, launches, ka, kb, kc)
-    del cap
+    del cap, engine, pipe, net
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- plain full-res path, kernel D
+    cap_d, launches_d = plain_main_path(torch, dev, engine_module, K, arch)
+    rows.append(kernel_d_check(torch, cap_d, launches_d))
+    del cap_d
+    torch.cuda.empty_cache()
 
     # ------------------------------------------- small model: cuda vs cpu
     torch.backends.cudnn.allow_tf32 = False
@@ -225,6 +245,8 @@ def main() -> int:
           f"agreement {agree:.6f} on {masks['cpu'].shape}, {n_lab} labels")
     check(agree >= 0.999, f"small cuda/cpu mask agreement {agree} < 0.999")
     check(n_lab > 1, "small check produced a single label")
+    small_plain_sweep(torch)
+    golden_predictor(torch)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -387,6 +409,223 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
               f"{r['library_ms']}, {r['launches']} launches per CT; "
               f"{r['shape']}")
     return rows
+
+
+def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):
+    """The plain full-res sweep at full width through
+    ``SlidingWindowEngine.predict_segmentation`` (bench.py's plain contract
+    with kernel D on). A warm-up run that also captures the d_call-th kernel
+    D call (the accumulator cloned before it), then a counted, phased run
+    and one more timed run. Returns (captured inputs, launches)."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
+                                                        SlidingWindowEngine)
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.ops import scatter_accumulate as kd
+
+    net = get_network_from_plans("PlainConvUNet", arch, (), 1, K,
+                                 compute_dtype=torch.bfloat16).to(dev)
+    tree = random_plain_params(arch, 1, K, seed=0)
+    engine = SlidingWindowEngine(
+        net, (96, 96, 160), K, tile_step_size=0.5, use_gaussian=True,
+        compute_dtype=torch.bfloat16, sweep_acc_dtype=torch.bfloat16,
+        shape_bucket=32, tile_batch=8, max_accumulator_bytes=4 * 1024 ** 3,
+        use_fused_accumulate=True, device=dev)
+    t0 = time.perf_counter()
+    vol = (np.random.RandomState(0).rand(1, size, size, size).astype(
+        np.float32) - 0.5) * 2
+    vol_shape, starts_x, coords_b, n_real, fused = engine._sweep_grid(
+        vol.shape[1:])
+    print(f"plain: PlainConvUNet features {arch['features_per_stage']}, {K} "
+          f"classes, patch {engine.patch_size}, volume {vol.shape} "
+          f"(made in {time.perf_counter() - t0:.3f} s); fused grid {fused}, "
+          f"vol_shape {vol_shape}, {len(starts_x)} chunks x "
+          f"{len(coords_b)} batches, {len(starts_x) * int(n_real.sum())} "
+          f"real tiles")
+    check(fused, "the plain path did not take kernel D's grid")
+
+    cap = {"n": 0}
+    real_d = engine_module.fused_scatter_accumulate
+
+    def d(acc, logits, gauss_flat, coords, n):
+        cap["n"] += 1
+        if cap["n"] == d_call:
+            cap["d"] = (acc.clone(), logits, gauss_flat, coords.copy(), n)
+        return real_d(acc, logits, gauss_flat, coords, n)
+
+    engine_module.fused_scatter_accumulate = d
+    t0 = time.perf_counter()
+    try:
+        seg0 = engine.predict_segmentation(tree, vol)
+    finally:
+        engine_module.fused_scatter_accumulate = real_d
+    print(f"plain: warm-up run {time.perf_counter() - t0:.3f} s (kernel D "
+          f"input captured from it)")
+    check("d" in cap, f"only {cap['n']} kernel D calls on the plain path")
+
+    kd.fused_scatter_accumulate.launches = 0
+    engine.timer = PhaseTimer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seg = engine.predict_segmentation(tree, vol)
+    wall = [time.perf_counter() - t0]
+    launches = kd.fused_scatter_accumulate.launches
+    phases = engine.timer.totals()
+    engine.timer = None
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    engine.predict_segmentation(tree, vol)
+    wall.append(time.perf_counter() - t0)
+    print(f"plain: kernel D launches per volume {launches} (predicted 80)")
+    print("plain: phase ms (CUDA events, counted run) " + json.dumps(
+        {k: round(v, 3) for k, v in phases.items()}))
+    print(f"plain: seconds per volume {[round(w, 4) for w in wall]} (first "
+          f"is the counted + event-timed run); peak device memory "
+          f"{peak / 2**30:.2f} GiB (the captured kernel D input included)")
+    check(launches > 0, "kernel D was not launched on the plain path")
+    check(seg.shape == (size,) * 3 and str(seg.dtype) == "uint8",
+          f"plain mask {seg.shape} {seg.dtype}")
+    labels = sorted(int(v) for v in set(seg[::4, ::4, ::4].ravel().tolist()))
+    check(max(labels) < K and len(labels) > 1, f"plain mask labels {labels}")
+    repeat = float((seg == seg0).mean())
+    print(f"plain: mask {seg.shape} uint8, {len(labels)} labels on a 1/64 "
+          f"sample; agreement with the warm-up run's mask {repeat:.6f}")
+    check(repeat >= 0.999, f"plain warm-up and counted runs agree only "
+          f"{repeat}")
+    return cap["d"], launches
+
+
+def kernel_d_check(torch, cap, launches):
+    """Kernel D against its plain version on the captured batch, in the
+    path's bf16 mode and in f32, bit for bit; timed beside its byte bound,
+    the plain version and one addcmul_ per tile."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.ops import scatter_accumulate as kd
+
+    acc, lg, gf, coords, n = cap
+    _, px, py, pz, C = lg.shape
+
+    def pair(a_in, l_in, g_in):
+        a_k, a_p = a_in.clone(), a_in.clone()
+        kd.fused_scatter_accumulate(a_k, l_in, g_in, coords, n)
+        kd.fused_scatter_accumulate_plain(a_p, l_in, g_in, coords, n)
+        err = float((a_k.float() - a_p.float()).abs().max())
+        same = torch.equal(a_k, a_p)
+        del a_p
+        ms = time_ms(torch, lambda: kd.fused_scatter_accumulate(
+            a_k, l_in, g_in, coords, n))
+        plain_ms = time_ms(torch, lambda: kd.fused_scatter_accumulate_plain(
+            a_k, l_in, g_in, coords, n), n=2, warmup=1)
+        g4 = g_in.view(px, py, pz, C)
+
+        def library():
+            for b in range(n):
+                x, y, z = (int(v) for v in coords[b])
+                a_k[x:x + px, y:y + py, z:z + pz].addcmul_(l_in[b], g4)
+
+        lib_ms = time_ms(torch, library, n=3, warmup=1)
+        return err, same, ms, plain_ms, lib_ms
+
+    err16, same16, ms16, plain16, lib16 = pair(acc, lg, gf)
+    acc32 = acc.float()
+    del acc
+    err32, same32, ms32, plain32, lib32 = pair(acc32, lg.float(), gf.float())
+    check(same16 and same32, f"fused_scatter_accumulate differs from its "
+          f"plain version (bf16 {err16}, f32 {err32})")
+    occ = np.zeros(acc32.shape[:3], bool)
+    for x, y, z in coords[:n]:
+        occ[x:x + px, y:y + py, z:z + pz] = True
+    union = int(occ.sum()) * C
+    tile = px * py * pz * C
+    d_bytes = (2 * union + n * tile + gf.numel()) * lg.element_size()
+    d_ops = 2 * n * tile
+    bms, bby = bound(d_bytes, d_ops)
+    row = {
+        "name": "fused_scatter_accumulate", "route": "cuda",
+        "source": "fast_nnunet_tpu_torch/csrc/scatter_accumulate.cu",
+        "replaces": "fast_nnunet_tpu/ops/pallas_kernels.py:143",
+        "launches": launches, "max_abs_err": err16,
+        "ms": ms16, "plain_ms": plain16, "bound_ms": bms, "bound_by": bby,
+        "library_ms": lib16, "tolerance": "bit-exact",
+        "bytes": d_bytes, "ops": d_ops,
+        "shape": f"acc {tuple(acc32.shape)} bf16, logits {tuple(lg.shape)}, "
+                 f"{n} real tiles at {coords[:n].tolist()}",
+        "f32_mode": {"max_abs_err": err32, "ms": ms32, "plain_ms": plain32,
+                     "library_ms": lib32}}
+    print(f"kernel {row['name']}: err {err16} (bf16), {err32} (f32), "
+          f"{ms16:.4f} ms vs bound {bms:.4f} ms ({bby}, {d_bytes} bytes), "
+          f"plain {plain16:.4f} ms, library {lib16:.4f} ms, {launches} "
+          f"launches per volume; f32: {ms32:.4f} ms, plain {plain32:.4f}, "
+          f"library {lib32:.4f}; {row['shape']}")
+    return row
+
+
+def small_plain_sweep(torch):
+    """A narrow PlainConvUNet through the fused plain sweep, cuda (kernel D)
+    vs cpu (its plain version), fp32: mask agreement >= 0.999. Patch
+    (16, 32, 32) takes the quantised grid, (16, 24, 24) (y/z strides under
+    16) the reference grid; on both, every tile batch is one launch."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.ops import scatter_accumulate as kd
+
+    vol = np.random.RandomState(2).randn(1, 40, 72, 88).astype(np.float32)
+    tree = random_plain_params(SMALL_ARCH, 1, 4, seed=2)
+    for patch in ((16, 32, 32), (16, 24, 24)):
+        masks, n_k = {}, 0
+        for d in ("cuda", "cpu"):
+            net = get_network_from_plans("PlainConvUNet", SMALL_ARCH, (), 1,
+                                         4, compute_dtype=torch.float32).to(d)
+            eng = SlidingWindowEngine(net, patch, 4,
+                                      compute_dtype=torch.float32,
+                                      sweep_acc_dtype=torch.float32,
+                                      tile_batch=2, use_fused_accumulate=True,
+                                      device=d)
+            n0 = kd.fused_scatter_accumulate.launches
+            masks[d] = eng.predict_segmentation_sweep(tree, vol)
+            if d == "cuda":
+                n_k = kd.fused_scatter_accumulate.launches - n0
+                _, starts_x, coords_b, _, _ = eng._sweep_grid(vol.shape[1:])
+        n_batches = len(starts_x) * len(coords_b)
+        agree = float((masks["cuda"] == masks["cpu"]).mean())
+        n_lab = len(set(masks["cpu"].ravel().tolist()))
+        print(f"small: patch {patch} fp32 fused plain sweep cuda ({n_k} "
+              f"kernel D launches for {n_batches} tile batches) vs cpu "
+              f"(plain): agreement {agree:.6f} on {masks['cpu'].shape}, "
+              f"{n_lab} labels")
+        check(n_k == n_batches > 0,
+              f"patch {patch}: {n_k} kernel D launches for {n_batches} "
+              f"tile batches")
+        check(agree >= 0.999,
+              f"patch {patch}: cuda/cpu agreement {agree} < 0.999")
+        check(n_lab > 1, f"patch {patch}: a single label")
+
+
+def golden_predictor(torch):
+    """NNUNetPredictor on the committed trained checkpoint, fp32 on the
+    card: the frozen golden mask, bit for bit."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.inference.predictor import NNUNetPredictor
+
+    gold = os.path.join(HERE, "tests", "fixtures", "golden_ckpt")
+    expected = NiftiIO().read_seg(os.path.join(gold, "expected_mask.nii.gz")
+                                  )[0][0].astype(np.uint8)
+    p = NNUNetPredictor(use_mirroring=False, device="cuda",
+                        compute_dtype=torch.float32)
+    p.initialize_from_trained_model_folder(os.path.join(gold, "model"),
+                                           use_folds=[0])
+    data, props = NiftiIO().read_images([os.path.join(gold,
+                                                      "input_0000.nii.gz")])
+    seg = p.predict_single_npy_array(data, props).astype(np.uint8)
+    same = float((seg == expected).mean())
+    print(f"golden: NNUNetPredictor fp32 on the card vs the frozen mask "
+          f"{expected.shape}: agreement {same:.6f}")
+    check(seg.shape == expected.shape and same == 1.0,
+          f"golden mask differs on the card (agreement {same})")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ the JAX package so each counterpart is easy to find.
 Ported so far: the bone_turbo serving path — ``inference.turbo.TurboPipeline``
 (device preprocess -> space-to-depth sweep -> nearest revert) with its three
 hand-written Hopper kernels (``ops.stats``, ``ops.s2d_accumulate``,
-``ops.finalize``; sources in ``csrc/``, built by ``ops._build`` at first use).
+``ops.finalize``); the plain full-res route — ``models.unet.PlainConvUNet``
+through ``inference.engine.SlidingWindowEngine`` (``predict_logits``, the
+rolling sweep, kernel ``ops.scatter_accumulate``); and the nnU-Net file path,
+``inference.predictor.NNUNetPredictor`` with the ``run.predict`` CLI. Kernel
+sources live in ``csrc/`` and are built by ``ops._build`` at first use.
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from .device import resolve_device

@@ -1,5 +1,6 @@
-"""Label bookkeeping: the subset of fast_nnunet_tpu/core/labels.py that the
-turbo loader uses (plain labels, regions, the ignore label), copied."""
+"""Label bookkeeping: fast_nnunet_tpu/core/labels.py copied (plain labels,
+regions, the ignore label, and the host-side numpy conversions from logits
+to probabilities and segmentations that the export uses)."""
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -102,8 +103,64 @@ class LabelManager:
             else len(self._all_labels)
 
     @property
+    def all_regions(self) -> Optional[List[LabelValue]]:
+        return self._regions
+
+    @property
+    def foreground_regions(self) -> Optional[List[LabelValue]]:
+        return self.filter_background(self._regions) \
+            if self._regions is not None else None
+
+    @property
     def foreground_labels(self) -> List[int]:
-        return [v for v in self._all_labels if v != 0]
+        return self.filter_background(self._all_labels)
+
+    def apply_inference_nonlin(self, logits: np.ndarray) -> np.ndarray:
+        """(c, x, y, z) logits -> probabilities (sigmoid for regions,
+        softmax else)."""
+        logits = np.asarray(logits, dtype=np.float32)
+        if self.has_regions:
+            return 1.0 / (1.0 + np.exp(-logits))
+        e = np.exp(logits - logits.max(axis=0, keepdims=True))
+        return e / e.sum(axis=0, keepdims=True)
+
+    def convert_probabilities_to_segmentation(self, probs: np.ndarray
+                                              ) -> np.ndarray:
+        if probs.shape[0] != self.num_segmentation_heads:
+            raise ValueError(f"Expected {self.num_segmentation_heads} "
+                             f"channels, got {probs.shape[0]}.")
+        if self.has_regions:
+            seg = np.zeros(probs.shape[1:], dtype=np.uint16)
+            for i, c in enumerate(self.regions_class_order):
+                seg[probs[i] > 0.5] = c
+            return seg
+        return probs.argmax(0)
+
+    def convert_logits_to_segmentation(self, logits: np.ndarray
+                                       ) -> np.ndarray:
+        # argmax is invariant to softmax: the nonlin matters for regions only
+        if self.has_regions:
+            return self.convert_probabilities_to_segmentation(
+                self.apply_inference_nonlin(logits))
+        return np.asarray(logits).argmax(0)
+
+    def revert_cropping_on_probabilities(self, probs: np.ndarray,
+                                         bbox: List[List[int]],
+                                         original_shape: Sequence[int]
+                                         ) -> np.ndarray:
+        out = np.zeros((probs.shape[0], *original_shape), dtype=probs.dtype)
+        if not self.has_regions:
+            out[0] = 1  # the padded area is certainly background
+        out[(slice(None),) + tuple(slice(b[0], b[1]) for b in bbox)] = probs
+        return out
+
+    @staticmethod
+    def filter_background(classes_or_regions):
+        def is_bg(v):
+            if isinstance(v, (tuple, list)):
+                return set(int(x) for x in v) == {0}
+            return v == 0
+        return [v for v in classes_or_regions if not is_bg(v)]
 
 
 def determine_num_input_channels(plans_manager, configuration_manager,

@@ -1,5 +1,7 @@
 """Plans handling: the subset of fast_nnunet_tpu/core/plans.py that the turbo
-loader uses, copied (same plans.json schema, inheritance resolution)."""
+loader, the preprocessor, the predictor and the export read, copied (same
+plans.json schema, inheritance resolution). Image reader/writers resolve to
+the port's NIfTI classes only."""
 import json
 from typing import List, Optional, Union
 
@@ -25,8 +27,30 @@ class ConfigurationManager:
         return self.configuration["normalization_schemes"]
 
     @property
+    def use_mask_for_norm(self) -> List[bool]:
+        return self.configuration["use_mask_for_norm"]
+
+    @property
     def previous_stage_name(self) -> Optional[str]:
         return self.configuration.get("previous_stage")
+
+    @property
+    def resampling_fn_data(self):
+        return self._resampling_fn("resampling_fn_data")
+
+    @property
+    def resampling_fn_seg(self):
+        return self._resampling_fn("resampling_fn_seg")
+
+    @property
+    def resampling_fn_probabilities(self):
+        return self._resampling_fn("resampling_fn_probabilities")
+
+    def _resampling_fn(self, key: str):
+        """The plans' function name and kwargs, resolved and bound."""
+        from ..ops.resampling import resolve_resampling_fn
+        return resolve_resampling_fn(self.configuration[key],
+                                     self.configuration[key + "_kwargs"])
 
 
 class PlansManager:
@@ -80,6 +104,18 @@ class PlansManager:
                 regions_class_order=dataset_json.get("regions_class_order"),
                 **kwargs)
         return self._label_manager_cache[key]
+
+    @property
+    def transpose_forward(self) -> List[int]:
+        return self.plans["transpose_forward"]
+
+    @property
+    def transpose_backward(self) -> List[int]:
+        return self.plans["transpose_backward"]
+
+    def image_reader_writer_class(self):
+        from ..imageio.nifti import find_reader_writer_by_name
+        return find_reader_writer_by_name(self.plans["image_reader_writer"])
 
     @property
     def foreground_intensity_properties_per_channel(self) -> dict:

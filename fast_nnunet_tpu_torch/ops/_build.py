@@ -42,6 +42,10 @@ SIGNATURES = {
     # p0h, pyh, pzh, F, K, Yh, Zh, c8p, row_base, y_lo, y_hi, stream
     "fnn_s2d_accumulate": [_p, _i, _p, _i, _p, _p, _p, _p, _p, _p, _i,
                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p],
+    # acc, dtype, logits, gauss, x0*, y0*, z0*, n_real, px, py, pz, Y, Z, C,
+    # x_lo, x_hi, y_lo, y_hi, stream
+    "fnn_scatter_accumulate": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                               _i, _i, _i, _i, _i, _i, _i, _p],
 }
 
 #: dtype codes shared with csrc/common.cuh

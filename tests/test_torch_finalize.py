@@ -10,7 +10,7 @@ from fast_nnunet_tpu.ops.pallas_finalize import grouped_argmax as jax_argmax
 from fast_nnunet_tpu_torch.ops.finalize import (grouped_argmax,
                                                 grouped_argmax_plain)
 
-from . import torch_port_common  # noqa: F401  (caps torch threads)
+from .torch_port_common import no_persistent_compile_cache  # noqa: F401
 
 
 def _acc(shape, K, seed, c8p):

@@ -15,7 +15,8 @@ from fast_nnunet_tpu_torch.ops.s2d_accumulate import (s2d_accumulate,
                                                       s2d_accumulate_plain,
                                                       seg_head_blocks)
 
-from .torch_port_common import bf16_ulp
+from .torch_port_common import (bf16_ulp,  # noqa: F401  (fixture)
+                                no_persistent_compile_cache)
 
 
 def _mk(B=3, p0h=4, pyh=4, pzh=8, K=3, F=2, Yh=16, Zh=24, seed=0):

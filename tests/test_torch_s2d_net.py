@@ -13,7 +13,9 @@ from fast_nnunet_tpu.models import s2d as jax_s2d
 from fast_nnunet_tpu.models.factory import get_network_from_plans
 from fast_nnunet_tpu_torch.models import s2d as port_s2d
 
-from .torch_port_common import ARCH, K, PATCH, ncdhw, plain_params, s2d_pair
+from .torch_port_common import (ARCH, K, PATCH,  # noqa: F401  (fixture)
+                                ncdhw, no_persistent_compile_cache,
+                                plain_params, s2d_pair)
 
 
 def _jax_apply(jnet, tree, x, **kw):

@@ -13,7 +13,8 @@ from fast_nnunet_tpu.ops.pallas_stats import spatial_sum_sumsq as jax_stats
 from fast_nnunet_tpu_torch.models.s2d import instance_norm
 from fast_nnunet_tpu_torch.ops.stats import spatial_sum_sumsq
 
-from .torch_port_common import ncdhw
+from .torch_port_common import (ncdhw,  # noqa: F401  (fixture)
+                                no_persistent_compile_cache)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 10, 12, 16),   # S = 960

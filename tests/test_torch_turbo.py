@@ -19,7 +19,8 @@ from fast_nnunet_tpu_torch.inference.turbo import (TurboConfig, TurboPipeline,
                                                    air_flags, resize_nearest,
                                                    resize_trilinear)
 
-from .torch_port_common import K, PATCH, s2d_pair
+from .torch_port_common import (K, PATCH,  # noqa: F401  (fixture)
+                                no_persistent_compile_cache, s2d_pair)
 
 CFG = dict(patch_size=(16, 8, 8), target_spacing=(1.0, 1.2, 1.1),
            mean=40.0, std=100.0, lower_bound=-60.0, upper_bound=400.0,

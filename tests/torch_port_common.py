@@ -1,9 +1,12 @@
 """Shared pieces of the PyTorch-port tests (tests/test_torch_*.py): the small
-architecture, seeded weights in the JAX tree layout, and the fixture that
-skips card-only tests on a host without CUDA.
+architecture, seeded weights in the JAX tree layout, the fixture that skips
+card-only tests on a host without CUDA, and the fixture that keeps the
+persistent XLA compile cache out of the port's tests.
 
 Inputs and weights are made with numpy from a seed and handed to both the
 JAX package (the reference) and the port."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +45,25 @@ def s2d_pair(seed: int = 0, arch=None, k: int = K, dtype="float32"):
                                compute_dtype=getattr(torch, dtype))
     params_from_jax(tnet, tree)
     return jnet, tnet, tree
+
+
+@pytest.fixture(autouse=True)
+def no_persistent_compile_cache():
+    """Compile every JAX function of the test afresh, as tests/test_aot.py
+    does for itself. With a warm persistent cache, executables loaded from
+    it earlier in the same process break test_aot.py's serialize round trip
+    ('Buffer Definition Event ... not found'). Autouse only in the files
+    that import it; JAX is imported here, not at module level, so files
+    that run on the card without JAX can import this module."""
+    import jax
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "fixtures", "golden_ckpt")
 
 
 @pytest.fixture
