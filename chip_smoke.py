@@ -5,8 +5,10 @@ the card. Run from the repository root:
 
     python3 chip_smoke.py
 
-1. Prints the card (``nvidia-smi`` name and power limit) and builds the
-   hand-written kernels from fast_nnunet_tpu_torch/csrc (timed).
+1. Prints the card (``nvidia-smi`` name and power limit), builds the
+   hand-written kernels from fast_nnunet_tpu_torch/csrc (timed) and prints
+   what ptxas reports for kernels B and C (registers, static shared memory,
+   spills, stack).
 2. s2d main path at full width: the bone_turbo r=2 distilled student (6
    stages, features 16..160, 61 classes; seeded random weights in the JAX
    package's tree layout, loaded through params_from_jax) over a 512x512x500
@@ -18,7 +20,8 @@ the card. Run from the repository root:
 3. Kernels A, B, C at that path's shapes, on tensors taken from it, against
    their plain PyTorch versions (A within f32 summation tolerance, B and C
    bit for bit, C in both accumulator modes), timed beside their bound, their
-   plain version and, where one exists, a library call.
+   plain version and, where one exists, a library call; B and C with their
+   launch plans, C with whether its features took the 16-byte path.
 4. Plain full-res path at full width (bench.py's plain contract): the same
    student as a PlainConvUNet through ``SlidingWindowEngine.
    predict_segmentation`` on a 512^3 (rand - 0.5) * 2 volume, patch
@@ -35,8 +38,9 @@ the card. Run from the repository root:
    >= 0.999; ``NNUNetPredictor`` on the committed golden
    checkpoint reproduces its frozen mask on the card.
 
-Prints the kernels JSON on its own line, then last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+Prints the kernels JSON on its own line (every row with ``bound_share`` =
+bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero without it.
 """
 import configparser
 import json
@@ -140,6 +144,13 @@ def main() -> int:
     _build.library()
     print(f"build: kernels built and loaded in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
+    for fn, v in sorted(_build.ptxas_report("_kernel").items()):
+        if "s2d_accumulate" in fn or "grouped_argmax" in fn:
+            print(f"build: ptxas {fn}: {v.get('registers')} registers, "
+                  f"{v.get('static_smem')} B static shared memory, "
+                  f"{v.get('spill_stores')} B spill stores, "
+                  f"{v.get('spill_loads')} B spill loads, "
+                  f"{v.get('stack')} B stack")
 
     # ------------------------------------------------------------ main path
     ini = os.path.join(HERE, "engine", "config", "fast_nnunet_bone_turbo.ini")
@@ -345,7 +356,11 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
         "library_ms": None, "tolerance": "bit-exact",
         "bytes": c_bytes, "ops": c_ops,
         "shape": f"acc {tuple(acc.shape)} bf16, feats {tuple(feat.shape)}, "
-                 f"{n_live} live tiles, row_base {row_base}",
+                 f"{n_live} live tiles at (yh0, zh0) "
+                 f"{coords[vk != 0].tolist()}, row_base {row_base}",
+        "plan": kc.launch_plan(acc.shape, acc.element_size(), F, K, pyh,
+                               pzh, coords[vk != 0]),
+        "feature_chunks_16B": kc.feature_runs_16b(feat),
         "f32_mode": {"max_abs_err": err32, "ms": ms32, "plain_ms": plain32}})
 
     # ---------------------------------------------------------- kernel B
@@ -372,6 +387,7 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
         "launches": launches["grouped_argmax"], "max_abs_err": err_b,
         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bms, "bound_by": bby,
         "library_ms": lib_b, "tolerance": "bit-exact",
+        "plan": kb.launch_plan(acc_b.shape, acc_b.element_size(), K),
         "bytes": b_bytes, "ops": vox * 8 * K,
         "shape": f"acc {tuple(acc_b.shape)} bf16, {n_rows} rows from "
                  f"row_base {base_b}"})
@@ -403,11 +419,12 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
         "bytes": a_bytes, "ops": 3 * x.numel(),
         "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}"})
     for r in rows:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         print(f"kernel {r['name']}: err {r['max_abs_err']} ({r['tolerance']})"
               f", {r['ms']:.4f} ms vs bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']}, {r['launches']} launches per CT; "
-              f"{r['shape']}")
+              f"({r['bound_by']}, share {r['bound_share']:.3f}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
+              f"{r['launches']} launches per CT; {r['shape']}")
     return rows
 
 
@@ -553,8 +570,10 @@ def kernel_d_check(torch, cap, launches):
                  f"{n} real tiles at {coords[:n].tolist()}",
         "f32_mode": {"max_abs_err": err32, "ms": ms32, "plain_ms": plain32,
                      "library_ms": lib32}}
+    row["bound_share"] = bms / ms16
     print(f"kernel {row['name']}: err {err16} (bf16), {err32} (f32), "
-          f"{ms16:.4f} ms vs bound {bms:.4f} ms ({bby}, {d_bytes} bytes), "
+          f"{ms16:.4f} ms vs bound {bms:.4f} ms ({bby}, {d_bytes} bytes, "
+          f"share {row['bound_share']:.3f}), "
           f"plain {plain16:.4f} ms, library {lib16:.4f} ms, {launches} "
           f"launches per volume; f32: {ms32:.4f} ms, plain {plain32:.4f}, "
           f"library {lib32:.4f}; {row['shape']}")

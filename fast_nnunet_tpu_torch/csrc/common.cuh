@@ -22,14 +22,23 @@ __device__ __forceinline__ void fnn_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// f32 -> nearest-even bf16 -> f32 (what a bf16-typed intermediate holds)
-__device__ __forceinline__ float fnn_round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 __device__ __forceinline__ float fnn_warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
+}
+
+// One asynchronous 16-byte global -> shared copy (L1 bypassed); it lands at
+// the issuing thread's next fnn_cp_async_wait_all, and other threads see it
+// after a __syncthreads that follows that wait.
+__device__ __forceinline__ void fnn_cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void fnn_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

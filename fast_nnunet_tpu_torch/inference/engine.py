@@ -685,7 +685,8 @@ class SlidingWindowEngine:
         acc_dtype = self.sweep_acc_dtype
         g_s2d = self.gaussian_s2d(acc_dtype)
         w_dense, b_head = self.network.seg_head_params()
-        w_blocks = seg_head_blocks(w_dense.float()).contiguous()
+        # in the compute dtype: bf16 weights let kernel C fuse its head dot
+        w_blocks = seg_head_blocks(w_dense).contiguous()
         b_head = b_head.float().contiguous()
         coords_h = coords_b[..., 1:] // 2                    # (nb, B, 2)
 

@@ -19,7 +19,8 @@ order (tiles of one batch may overlap: step 0.5)::
 - ``w`` (8, F, K) — the per-offset diagonal blocks of the block-diagonal
   (8F, 8K) seg head (the 7/8 structural zeros of the dense TPU form add exact
   zeros, so skipping them changes nothing); ``b`` (8K,). Both are used as
-  f32 values (bf16 weights convert exactly).
+  f32 values (bf16 weights convert exactly); bf16 weights passed as bf16
+  (the engine does) let the kernel fuse the head dot (below).
 - ``g_s2d`` (p0h, pyh, pzh, 8) f32 gaussian; ``coords_h`` host (B, 2)
   half-res (yh0, zh0); ``valid`` host (B,) 0/1 — a 0 slot is skipped.
 
@@ -29,24 +30,49 @@ Two accumulator modes, chosen by ``acc.dtype``:
 - bfloat16 — the XLA default sweep op for op: ``y = bf16(bf16(dot) + b)``,
   ``c = bf16(f32(y) * g)``, ``acc = bf16(acc + c)``.
 
-The head dot is an ordered f32 sum of unrounded-product terms f = 0..F-1
-(no fused multiply-add), identical in the kernel and the plain version, so
-the two agree bit for bit in both modes.
+The head dot is an ordered f32 sum over f = 0..F-1 of products each rounded
+to f32, so the kernel and the plain version agree bit for bit in both modes. The
+kernel fuses a multiply-add (one rounding) only where that changes no bit:
+when the features and the weights both arrive as bf16 tensors (a host fact,
+no sync), every product has at most 16 significant bits and is exact in
+f32. One exception: a product whose lowest bit falls below 2^-149 (one
+under f32's normal range, ``|x * w| < 2^-126`` or so) is rounded by the
+plain version and not by the fused one, and the dot may then differ by a
+few units of 2^-149 (tests/test_torch_kernels_cuda.py bounds it).
 
-Bound on the card: bytes. Per tile the accumulator region is read and
-written once (2 x p0h*pyh*pzh*8K*itemsize) and the features read once; the
-head is 2*F flop per output lane, about 16 flop per accumulator byte in
-bf16 — far under the 295 flop/byte ridge, so CUDA cores suffice and tensor
-cores would not move the floor. Design: block (Y, i) owns one accumulator
-row and walks the batch's tiles in batch order, so overlapping tiles need
-neither atomics nor one launch per tile, and every element is written by one
-block (deterministic). The tile's feature row and gaussian row are staged in
-shared memory; the per-offset weights stay there for the block's life.
-Blocks whose row no valid tile covers exit at once.
+Bound on the card: bytes, on paper. The accumulator's union of covering
+tiles is read and written once and the features read once; the head is
+2F+3 f32 flop per output lane, and at the main path's call (8 live tiles)
+the flop floor (0.376 ms at 67 TFLOP/s) lies under the byte floor
+(0.454 ms at 3.35 TB/s). Design (launch plan: :func:`launch_plan`): a block
+owns one (virtual row i, plane row Y) line of the accumulator for the whole
+launch and walks it in z-segments of 16 voxels (8 where 16 would not fit in
+shared memory), all lanes. Each segment's piece is copied to shared memory
+once with 16-byte ``cp.async``, gets every covering tile in batch order and
+is written back once: the accumulator moves once per launch (the design
+this one replaced, one block per accumulator row walking the tiles, moved
+it once per covering tile, about 2.5 times), without atomics and
+deterministic. One warp lists the block's steps (segment, covering tile)
+with ballots; a step costs one barrier, and while its math runs the step
+after next is loading (bf16 features as aligned 16-byte chunks, whatever the
+tile's z-start), the next is staged as f32, and at a segment's first step
+the next segment's piece is in flight. Each thread keeps two lanes of one
+offset group and their head weights for f < 32 in registers; any F is
+taken (a head wider than 32 reads the rest of its weights through L1).
+
+What bounds it, measured (``python tools/ablate_s2d_accumulate.py`` and
+chip_smoke.py, H100 80GB HBM3 at 700 W): about 1.7 ms at the main path's
+captured call, a quarter of the byte bound; with every load and store
+switched off it keeps most of that time, so instruction issue on the CUDA
+cores bounds it — 16 multiply-adds per output lane and tile plus the bf16
+epilogue's roundings. Tensor cores (``mma``) would take the head dot off
+the CUDA cores but sum in another order than the plain version's ordered
+f32 sum, and the kernel would lose its bit-exact check.
 
 On a CPU tensor the wrapper runs :func:`s2d_accumulate_plain`; on a CUDA
 tensor it launches the kernel or raises.
 """
+import ctypes
 from typing import Sequence
 
 import numpy as np
@@ -54,7 +80,72 @@ import torch
 
 from . import _build
 
-MAX_TILES = 32  # csrc/s2d_accumulate.cu kMaxTiles
+MAX_TILES = 32    # csrc/s2d_accumulate.cu kMaxTiles
+SEGS = (16, 8)    # z voxels of a block's accumulator piece, by preference
+THREADS = 256     # kThreads: thread (o, kq) holds lanes 2kq, 2kq + 1 of o
+FEATURE_PAD = 4   # kFPad: floats after each offset group's staged features
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+
+
+class _Geometry(ctypes.Structure):
+    """csrc/s2d_accumulate.cu FnnS2dGeometry, field for field."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "B", "p0h", "pyh", "pzh", "F", "K", "Yh", "Zh", "c8p",
+        "row_base", "y_lo", "y_hi", "seg", "seg_lo", "seg_hi",
+        "lane_pairs", "n_pass", "piece_off", "fb_off", "gb_off",
+        "steps_off", "segs_off", "smem", "vec16", "fvec", "fuse")]
+
+
+def launch_plan(acc_shape: Sequence[int], acc_itemsize: int, F: int, K: int,
+                pyh: int, pzh: int, live_coords: np.ndarray) -> dict:
+    """The kernel's grid and shared-memory layout for one call.
+
+    Block (Y, i) owns accumulator row i, plane row Y in [y_lo, y_hi), and
+    walks it in z-segments [s * seg, min((s + 1) * seg, Zh)) for s in
+    [seg_lo, seg_hi): the segments tile the live tiles' z-span, so every
+    (Y, z) a live tile covers belongs to exactly one piece of one block.
+    seg is 16, or 8 where 16 would not fit. A step is (segment, covering
+    tile); a block has at most n_seg * B. Shared memory, in order: three
+    piece buffers (seg voxels x c8p lanes, piece_off apart), two staged
+    feature buffers ((8, F, seg) f32 with FEATURE_PAD floats after each
+    offset group), two gaussian buffers (seg, 8), the step list (16 B a
+    step), the segment pieces (8 B each)."""
+    _, _, Zh, c8p = acc_shape
+    if not len(live_coords):
+        raise ValueError("no live tile to plan for")
+    B = len(live_coords)
+    lane_pairs = -(-K // 2)
+    z_lo = int(live_coords[:, 1].min())
+    z_hi = int(live_coords[:, 1].max()) + pzh
+    for seg in SEGS:
+        seg_lo, seg_hi = z_lo // seg, -(-z_hi // seg)
+        piece = -(-seg * c8p * acc_itemsize // 16) * 16
+        fb_off = 3 * piece
+        gb_off = fb_off + 2 * 8 * (F * seg + FEATURE_PAD) * 4
+        steps_off = gb_off + 2 * seg * 8 * 4
+        segs_off = steps_off + 16 * (seg_hi - seg_lo) * B
+        smem = segs_off + -(-8 * (seg_hi - seg_lo) // 16) * 16
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"kernel C needs {smem} B of shared memory "
+                         f"(> {SMEM_LIMIT}) for c8p={c8p}, F={F}")
+    return {"y_lo": int(live_coords[:, 0].min()),
+            "y_hi": int(live_coords[:, 0].max()) + pyh,
+            "seg": seg, "seg_lo": seg_lo, "seg_hi": seg_hi,
+            "lane_pairs": lane_pairs,
+            "n_pass": -(-8 * lane_pairs // THREADS),
+            "piece_off": piece, "fb_off": fb_off, "gb_off": gb_off,
+            "steps_off": steps_off, "segs_off": segs_off, "smem": smem}
+
+
+def feature_runs_16b(feats: torch.Tensor) -> bool:
+    """Whether the kernel may load features in aligned 16-byte chunks: bf16
+    features whose (pzh) z-rows are whole chunks, 16-byte aligned. Any tile
+    z-start is then fine (a run of 8 z is cut from the two chunks that hold
+    it); otherwise the kernel loads them z by z."""
+    return (feats.dtype == torch.bfloat16 and feats.shape[4] % 8 == 0
+            and feats.data_ptr() % 16 == 0)
 
 
 def _host_tiles(coords_h, valid):
@@ -145,32 +236,48 @@ def s2d_accumulate(acc: torch.Tensor, feats: torch.Tensor,
     B = len(valid)
     if not 1 <= B <= MAX_TILES:
         raise ValueError(f"batch of {B} tiles (kernel takes 1..{MAX_TILES})")
-    live = valid != 0
-    if not live.any():
+    if not (valid != 0).any():
         return acc
-    p0h, Yh, Zh, c8p = acc.shape
-    pyh, pzh = feats.shape[3], feats.shape[4]
-    F, K = w.shape[1], w.shape[2]
-    y_lo = int(coords[live, 0].min())
-    y_hi = int(coords[live, 0].max()) + pyh
-    g32 = g_s2d.float().contiguous()
-    w32 = w.float().contiguous()
-    b32 = b.float().contiguous()
-    yh0 = np.ascontiguousarray(coords[:, 0])
-    zh0 = np.ascontiguousarray(coords[:, 1])
-    lib = _build.library()
-    err = lib.fnn_s2d_accumulate(
-        acc.data_ptr(), _build.dtype_code(acc), feats.data_ptr(),
-        _build.dtype_code(feats), g32.data_ptr(), w32.data_ptr(),
-        b32.data_ptr(), yh0.ctypes.data, zh0.ctypes.data, valid.ctypes.data,
-        B, p0h, pyh, pzh, F, K, Yh, Zh, c8p, int(row_base) % p0h, y_lo, y_hi,
-        _build.stream_ptr(acc))
-    _build.check(err, "s2d_accumulate")
+    launch_kernel(_build.library(), acc, feats, g_s2d, w, b, coords, valid,
+                  row_base)
     s2d_accumulate.launches += 1
     return acc
 
 
 s2d_accumulate.launches = 0
+
+
+def launch_kernel(lib, acc, feats, g_s2d, w, b, coords: np.ndarray,
+                  valid: np.ndarray, row_base: int) -> None:
+    """Plan kernel C for one call and launch it from ``lib`` (the kernel
+    library :func:`_build.library` built) on inputs :func:`s2d_accumulate`
+    has checked, with at least one live tile."""
+    p0h, Yh, Zh, c8p = acc.shape
+    pyh, pzh = feats.shape[3], feats.shape[4]
+    F, K = w.shape[1], w.shape[2]
+    acc_code, feat_code = _build.dtype_code(acc), _build.dtype_code(feats)
+    plan = launch_plan(acc.shape, acc.element_size(), F, K, pyh, pzh,
+                       coords[valid != 0])
+    g32 = g_s2d.float().contiguous()
+    if g32.data_ptr() % 16:  # the kernel reads it as float4
+        g32 = g32.clone()
+    w32 = w.float().contiguous()
+    b32 = b.float().contiguous()
+    geom = _Geometry(
+        B=len(valid), p0h=p0h, pyh=pyh, pzh=pzh, F=F, K=K, Yh=Yh, Zh=Zh,
+        c8p=c8p, row_base=int(row_base) % p0h,
+        vec16=int(c8p * acc.element_size() % 16 == 0
+                  and acc.data_ptr() % 16 == 0),
+        fvec=int(feature_runs_16b(feats)),
+        fuse=int(feats.dtype == w.dtype == torch.bfloat16), **plan)
+    yh0 = np.ascontiguousarray(coords[:, 0])
+    zh0 = np.ascontiguousarray(coords[:, 1])
+    err = lib.fnn_s2d_accumulate(
+        acc.data_ptr(), acc_code, feats.data_ptr(), feat_code,
+        g32.data_ptr(), w32.data_ptr(), b32.data_ptr(), yh0.ctypes.data,
+        zh0.ctypes.data, valid.ctypes.data, ctypes.addressof(geom),
+        _build.stream_ptr(acc))
+    _build.check(err, "s2d_accumulate")
 
 
 def seg_head_blocks(w_dense: torch.Tensor) -> torch.Tensor:

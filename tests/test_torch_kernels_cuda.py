@@ -95,6 +95,161 @@ def test_accumulate_bit_equals_plain(cuda_device, feat_dtype, acc_dtype):
     assert torch.equal(got, ref)
 
 
+def _c_case(B, K, F, feat_dtype, acc_dtype, coords, valid, p0h=4, pyh=12,
+            pzh=40, Yh=40, Zh=72, c8p=None, w_kind="bf16", seed=11):
+    rng = np.random.RandomState(seed)
+    c8p = c8p or 8 * K
+    acc = np.zeros((p0h, Yh, Zh, c8p), np.float32)
+    acc[..., :8 * K] = rng.randn(p0h, Yh, Zh, 8 * K)
+    w = torch.from_numpy((rng.randn(8, F, K) * 0.3).astype(np.float32))
+    if w_kind == "bf16":  # the main path's head: bf16 (the fused dot)
+        w = w.bfloat16()
+    elif w_kind == "bf16_values":  # the same values as f32: not fused
+        w = w.bfloat16().float()
+    b = torch.from_numpy((rng.randn(8 * K) * 0.1).astype(np.float32))
+    feats = torch.from_numpy(rng.randn(B, 8 * F, p0h, pyh, pzh).astype(
+        np.float32)).to(getattr(torch, feat_dtype))
+    g = torch.from_numpy(np.abs(rng.randn(p0h, pyh, pzh, 8)).astype(
+        np.float32) * 10)
+    a0 = torch.from_numpy(acc).to(getattr(torch, acc_dtype))
+    args = (feats, g, w, b, np.array(coords, np.int32),
+            np.array(valid, np.float32))
+    return a0, args
+
+
+@pytest.mark.parametrize("case", [
+    # bf16 features, bf16 weights (FMA branch); overlapping tiles whose
+    # z-spans start off the 16-voxel segment grid; one invalid slot inside
+    dict(B=6, K=61, F=16, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 0], [6, 20], [6, 20], [14, 32], [28, 5], [20, 27]],
+         valid=[1, 1, 0, 1, 1, 1], row_base=3),
+    dict(B=6, K=61, F=16, feat_dtype="bfloat16", acc_dtype="float32",
+         coords=[[0, 0], [6, 20], [6, 20], [14, 32], [28, 5], [20, 27]],
+         valid=[1, 1, 0, 1, 1, 1], row_base=3),
+    # tile z-spans on the 8-z grid (16-byte feature runs), overlapping
+    dict(B=5, K=61, F=16, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 0], [6, 8], [6, 24], [14, 32], [20, 16]],
+         valid=[1, 1, 1, 0, 1], row_base=1),
+    # pzh = 36: z-rows not whole 16-byte chunks, features loaded z by z
+    dict(B=3, K=7, F=8, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 0], [4, 17], [10, 36]], valid=[1, 1, 1], row_base=1,
+         pzh=36),
+    # B = 1, the segment grid not starting at 0
+    dict(B=1, K=61, F=16, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[9, 17]], valid=[1], row_base=0),
+    # B = 32 (kMaxTiles), heavy overlap, row_base wrap
+    dict(B=32, K=7, F=8, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[(3 * t) % 28, (5 * t) % 32] for t in range(32)],
+         valid=[float(t % 5 != 2) for t in range(32)], row_base=2),
+    # f32 features: the unfused branch
+    dict(B=4, K=5, F=4, feat_dtype="float32", acc_dtype="float32",
+         coords=[[0, 0], [4, 8], [8, 24], [16, 20]], valid=[1, 1, 1, 1],
+         row_base=1),
+    # bf16 features but f32 weights bf16 cannot hold: the unfused branch
+    dict(B=3, K=61, F=16, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 0], [4, 30], [2, 13]], valid=[1, 1, 1], row_base=0,
+         w_kind="f32"),
+    # bf16 weight values given as f32: the unfused branch, same bits
+    dict(B=3, K=61, F=16, feat_dtype="bfloat16", acc_dtype="float32",
+         coords=[[0, 0], [4, 30], [2, 13]], valid=[1, 1, 1], row_base=0,
+         w_kind="bf16_values"),
+    # F = 32 (the second register budget), K = 70 (two lane passes)
+    dict(B=3, K=70, F=32, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 3], [5, 30], [20, 16]], valid=[1, 1, 1], row_base=2),
+    # F = 48: weights past 32 through L1, channels past 256 staged unfetched
+    dict(B=3, K=13, F=48, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 3], [5, 30], [20, 16]], valid=[1, 1, 1], row_base=2),
+    dict(B=2, K=7, F=40, feat_dtype="float32", acc_dtype="float32",
+         coords=[[0, 0], [6, 12]], valid=[1, 1], row_base=1, pzh=36),
+    # c8p lanes not a whole number of 16-byte units: element-wise copies
+    dict(B=3, K=5, F=2, feat_dtype="bfloat16", acc_dtype="bfloat16",
+         coords=[[0, 0], [3, 9], [10, 31]], valid=[1, 1, 1], row_base=1,
+         c8p=41),
+    # f32 accumulator, K = 150: 16-z pieces would not fit, 8-z pieces do
+    dict(B=3, K=150, F=8, feat_dtype="bfloat16", acc_dtype="float32",
+         coords=[[0, 8], [5, 24], [20, 0]], valid=[1, 1, 1], row_base=2),
+])
+def test_accumulate_redesign_bit_equals_plain(cuda_device, case):
+    """The redesigned kernel C (pieces of 16 z, tiles in batch order) equals
+    the plain version bit for bit, in both accumulator modes and both
+    branches of the head dot."""
+    case = dict(case)
+    row_base = case.pop("row_base")
+    a0, args = _c_case(**case)
+    ref = s2d_accumulate_plain(a0.clone(), *args, row_base=row_base)
+    n0 = s2d_accumulate.launches
+    dev = [x.to(cuda_device) if torch.is_tensor(x) else x for x in args]
+    got = s2d_accumulate(a0.to(cuda_device), *dev, row_base=row_base).cpu()
+    assert s2d_accumulate.launches == n0 + 1
+    assert torch.equal(got, ref)
+
+
+def test_accumulate_fused_dot_below_normal_range(cuda_device):
+    """Where head products fall under f32's normal range (features and
+    weights near 1e-21) the fused dot rounds them where the plain version
+    does not: the documented exception, bounded by one unit of 2^-149 per
+    multiply-add after the first (f32 accumulator at 0, zero bias, unit
+    gaussian, so the dot reaches the accumulator unchanged)."""
+    F = 16
+    a0, (feats, g, w, b, coords, valid) = _c_case(
+        B=2, K=5, F=F, feat_dtype="bfloat16", acc_dtype="float32",
+        coords=[[0, 0], [20, 24]], valid=[1, 1])
+    a0.zero_()
+    feats = (feats.float() * 1e-21).bfloat16()
+    w = (w.float() * 1e-21).bfloat16()
+    args = (feats, torch.ones_like(g), w, torch.zeros_like(b), coords, valid)
+    ref = s2d_accumulate_plain(a0.clone(), *args)
+    dev = [x.to(cuda_device) if torch.is_tensor(x) else x for x in args]
+    got = s2d_accumulate(a0.to(cuda_device), *dev).cpu()
+    assert ref.abs().max() < 2.0 ** -126  # the range under test
+    assert ref.abs().max() > 0
+    assert (got - ref).abs().max() <= (F - 1) * 2.0 ** -149
+
+
+def test_accumulate_all_invalid_batch_is_untouched(cuda_device):
+    a0, args = _c_case(B=4, K=61, F=16, feat_dtype="bfloat16",
+                       acc_dtype="bfloat16",
+                       coords=[[0, 0], [4, 8], [8, 24], [16, 20]],
+                       valid=[0, 0, 0, 0])  # no live tile: no launch
+    dev = [x.to(cuda_device) if torch.is_tensor(x) else x for x in args]
+    n0 = s2d_accumulate.launches
+    got = s2d_accumulate(a0.to(cuda_device), *dev, row_base=1).cpu()
+    assert s2d_accumulate.launches == n0  # nothing to launch
+    assert torch.equal(got, a0)
+
+
+@pytest.mark.parametrize("dtype,K,c8p,Zh", [
+    ("bfloat16", 61, 488, 40),   # the main path's lanes; a run of 8 voxels
+    ("float32", 61, 488, 72),    # f32 rows padded to an odd unit count
+    ("bfloat16", 5, 41, 37),     # c8p not whole units: element-wise copies
+])
+def test_finalize_redesign_bit_equals_plain(cuda_device, dtype, K, c8p, Zh):
+    """Redesigned kernel B: NaN lanes and ties, also across an offset group
+    boundary, all rows retired (n_zero = n_rows) with a wrapping row_base,
+    and a line length that does not fill the last block."""
+    rng = np.random.RandomState(12)
+    p0h, Yh = 5, 6
+    acc = np.zeros((p0h, Yh, Zh, c8p), np.float32)
+    acc[..., :8 * K] = np.round(rng.randn(p0h, Yh, Zh, 8 * K) * 2) / 2
+    acc[:, 0, 0, K - 1:K + 1] = 7.0       # tie across the o=0 / o=1 boundary
+    acc[:, 0, 1, 2 * K:3 * K] = 3.0       # a whole group tied
+    acc[:, 1, 2, K + 3] = np.nan          # NaN wins its group ...
+    acc[:, 1, 2, K + 1] = np.nan          # ... the first NaN does
+    acc[:, 2, 3, 3 * K:4 * K] = np.nan    # an all-NaN group
+    acc[:, 3, 4, :8 * K] = -np.inf
+    acc = torch.from_numpy(acc).to(getattr(torch, dtype))
+    n_rows = 4
+    a_gpu = acc.to(cuda_device)
+    n0 = grouped_argmax.launches
+    got = grouped_argmax(a_gpu, K, n_rows, row_base=3, n_zero=n_rows).cpu()
+    assert grouped_argmax.launches == n0 + 1
+    a_cpu = acc.clone()
+    ref = grouped_argmax_plain(a_cpu, K, n_rows, row_base=3, n_zero=n_rows)
+    assert torch.equal(got, ref)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32  # NaN-safe
+    assert torch.equal(a_gpu.cpu().view(bits), a_cpu.view(bits))
+
+
 # --------------------------------------------- kernel D: scatter-accumulate
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("coords,n_real", [
