@@ -38,6 +38,30 @@ the card. Run from the repository root:
    >= 0.999; ``NNUNetPredictor`` on the committed golden
    checkpoint reproduces its frozen mask on the card.
 
+7. Training at full width (``train:``): 4 synthetic bone_turbo-scale cases
+   (1, 200, 140, 140) written with the port's case store and the plans of
+   experiments/bench_train.py (the teacher-width PlainConvUNet, 61 classes,
+   patch 160x96x96, batch 2, deep supervision, bf16 compute with float32
+   parameters, SGD nesterov 0.99 + poly, the JAX remat rule) through
+   ``run_training``: one epoch of 12 iterations and 2 validation iterations,
+   then ``perform_actual_validation`` of the fold's one validation case.
+   Prints warm seconds per iteration fed (dataloader) and cached (one
+   device batch through the step function), CUDA-event phases, peak memory
+   with the remat rule and with remat off, kernel A launches per step
+   against the count the 4096-voxel gate predicts, FLOPs per step and
+   ``mfu``; the loss must be finite and fall over 10 cached steps.
+8. Kernel A at the widest training call (captured from the run), forward
+   against its plain version and ``autograd.grad`` through
+   ``SpatialSumSumsq`` against the plain version's autograd (float32, 1e-5
+   relative); the result is A's row's ``train`` fields.
+9. Distillation (``distill:``): 5 teacher folds of seeded random teacher
+   weights written with the port's ``save_checkpoint``, then
+   ``run_distillation_training`` (student r = 2, alpha 0.3, T 3.0) for 8
+   iterations: seconds per iteration, kernel A launches per step, seg and
+   distill losses (finite).
+10. A small training step cuda vs cpu (fp32, TF32 off, deterministic cuDNN,
+   3 steps): losses within 1e-4 relative, parameters within 1e-5.
+
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero without it.
@@ -52,6 +76,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 # the bone_turbo teacher (nnU-Net 3d_fullres PlainConvUNet for the bone
 # dataset); the served student halves its features (r = 2)
@@ -66,6 +91,21 @@ TEACHER_ARCH = {
     "norm_op_kwargs": {"eps": 1e-5, "affine": True},
     "nonlin_kwargs": {"inplace": True},
 }
+# experiments/bench_train.py's bone_turbo training contract
+TRAIN_ARCH = {
+    "network_class_name":
+        "dynamic_network_architectures.architectures.unet.PlainConvUNet",
+    "arch_kwargs": dict(
+        TEACHER_ARCH, conv_op="torch.nn.modules.conv.Conv3d",
+        norm_op="torch.nn.modules.instancenorm.InstanceNorm3d",
+        dropout_op=None, dropout_op_kwargs=None, nonlin="torch.nn.LeakyReLU"),
+    "_kw_requires_import": ["conv_op", "norm_op", "dropout_op", "nonlin"],
+}
+TRAIN_K = 61
+TRAIN_PATCH = [160, 96, 96]
+TRAIN_CASE = (200, 140, 140)
+TRAIN_SPACING = [2.0, 0.9765625, 0.9765625]
+TRAIN_DS = "Dataset987_TrainBench"
 SMALL_ARCH = {
     "n_stages": 3, "features_per_stage": [8, 16, 32],
     "kernel_sizes": [[3, 3, 3]] * 3, "strides": [[1, 1, 1]] + [[2, 2, 2]] * 2,
@@ -230,7 +270,12 @@ def main() -> int:
     del cap_d
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- training and distillation
+    training_paths(torch, dev, next(r for r in rows
+                                    if r["name"] == "spatial_sum_sumsq"))
+
     # ------------------------------------------- small model: cuda vs cpu
+    small_train_step(torch, dev)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg_s = TurboConfig(patch_size=(32, 32, 32),
@@ -645,6 +690,527 @@ def golden_predictor(torch):
           f"{expected.shape}: agreement {same:.6f}")
     check(seg.shape == expected.shape and same == 1.0,
           f"golden mask differs on the card (agreement {same})")
+
+
+# ------------------------------------------------------------------ training
+def write_train_dataset(root, n_cases=4, seed=0):
+    """bench_train's synthetic preprocessed cases (one cuboid per class,
+    data correlated with the label), with the properties the final
+    validation's export needs, and their labels as nnUNet_raw NIfTIs."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.preprocessing.preprocessor import \
+        DefaultPreprocessor
+    from fast_nnunet_tpu_torch.training.dataset import NpyCaseDataset
+    from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p, save_json
+
+    pre = os.path.join(root, "preprocessed", TRAIN_DS)
+    folder = os.path.join(pre, "nnUNetPlans_3d_fullres")
+    labels = os.path.join(root, "raw", TRAIN_DS, "labelsTr")
+    for d in (folder, labels, os.path.join(root, "results")):
+        maybe_mkdir_p(d)
+    rng = np.random.RandomState(seed)
+    shape = TRAIN_CASE
+    for i in range(n_cases):
+        data = rng.randn(1, *shape).astype(np.float32)
+        seg = np.zeros((1, *shape), np.int8)
+        for c in range(1, TRAIN_K):
+            sz = rng.randint(6, 16, size=3)
+            lo = [rng.randint(0, shape[d] - sz[d]) for d in range(3)]
+            sl = (0,) + tuple(slice(lo[d], lo[d] + sz[d]) for d in range(3))
+            seg[sl] = c
+            data[sl] += 0.05 * c
+        props = {
+            "class_locations": DefaultPreprocessor._sample_foreground_locations(
+                seg, list(range(1, TRAIN_K))),
+            "spacing": TRAIN_SPACING, "shape_before_cropping": shape,
+            "bbox_used_for_cropping": [[0, s] for s in shape],
+            "shape_after_cropping_and_before_resampling": shape}
+        NpyCaseDataset.save_case(data, seg, props,
+                                 os.path.join(folder, f"case_{i:03d}"))
+        NiftiIO().write_seg(seg[0], os.path.join(labels, f"case_{i:03d}.nii.gz"),
+                            {"spacing": TRAIN_SPACING})
+    rs = "resample_data_or_seg_to_shape"
+    plans = {
+        "dataset_name": TRAIN_DS, "plans_name": "nnUNetPlans",
+        "image_reader_writer": "NiftiIO",
+        "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+        "foreground_intensity_properties_per_channel": {},
+        "configurations": {"3d_fullres": {
+            "data_identifier": "nnUNetPlans_3d_fullres", "batch_size": 2,
+            "patch_size": TRAIN_PATCH, "spacing": TRAIN_SPACING,
+            "normalization_schemes": ["CTNormalization"],
+            "use_mask_for_norm": [False],
+            "resampling_fn_data": rs,
+            "resampling_fn_data_kwargs": {"is_seg": False, "order": 3},
+            "resampling_fn_seg": rs,
+            "resampling_fn_seg_kwargs": {"is_seg": True, "order": 1},
+            "resampling_fn_probabilities": rs,
+            "resampling_fn_probabilities_kwargs": {"is_seg": False,
+                                                   "order": 1},
+            "architecture": TRAIN_ARCH, "batch_dice": False}}}
+    dataset_json = {
+        "name": TRAIN_DS, "numTraining": n_cases, "file_ending": ".nii.gz",
+        "channel_names": {"0": "CT"},
+        "labels": {"background": 0,
+                   **{f"struct_{c}": c for c in range(1, TRAIN_K)}}}
+    save_json(plans, os.path.join(pre, "nnUNetPlans.json"))
+    save_json(dataset_json, os.path.join(pre, "dataset.json"))
+    return plans
+
+
+def conv_flops(torch, net, x):
+    """(forward FLOPs, FLOPs of the convolutions inside checkpointed stacks)
+    of one forward of ``net`` on ``x``: 2 k^3 Cin Cout per output voxel of a
+    convolution, per input voxel of a transposed convolution."""
+    from torch import nn
+    from fast_nnunet_tpu_torch.models.blocks import StackedConvBlocks
+    remat_convs = {id(m) for st in net.modules()
+                   if isinstance(st, StackedConvBlocks) and st.remat
+                   for m in st.modules() if isinstance(m, nn.Conv3d)}
+    tot = {"all": 0, "remat": 0}
+
+    def hook(mod, inp, out):
+        if isinstance(mod, nn.ConvTranspose3d):
+            f = 2 * mod.weight.numel() * inp[0].numel() // inp[0].shape[1]
+        else:
+            f = 2 * mod.weight.numel() * out.numel() // out.shape[1]
+        tot["all"] += f
+        if id(mod) in remat_convs:
+            tot["remat"] += f
+
+    hs = [m.register_forward_hook(hook) for m in net.modules()
+          if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d))]
+    try:
+        with torch.no_grad():
+            net(x, deep_supervision=True)
+    finally:
+        for h in hs:
+            h.remove()
+    return tot["all"], tot["remat"]
+
+
+def gated_norms(torch, net, x):
+    """(norms at >= the kernel A gate in one forward, of those inside
+    checkpointed stacks): the kernel A launches one training step should
+    make are their sum."""
+    from fast_nnunet_tpu_torch.models.blocks import (InstanceNorm,
+                                                     StackedConvBlocks)
+    from fast_nnunet_tpu_torch.models.s2d import STATS_MIN_VOXELS
+    remat_norms = {id(m) for st in net.modules()
+                   if isinstance(st, StackedConvBlocks) and st.remat
+                   for m in st.modules() if isinstance(m, InstanceNorm)}
+    n = {"all": 0, "remat": 0}
+
+    def hook(mod, inp, out):
+        if inp[0][0, 0].numel() >= STATS_MIN_VOXELS:
+            n["all"] += 1
+            n["remat"] += id(mod) in remat_norms
+
+    hs = [m.register_forward_hook(hook) for m in net.modules()
+          if isinstance(m, InstanceNorm)]
+    try:
+        with torch.no_grad():
+            net(x, deep_supervision=True)
+    finally:
+        for h in hs:
+            h.remove()
+    return n["all"], n["remat"]
+
+
+def stamp_iterations(cls, attr, cap, warm, timer=None):
+    """Wrap ``cls.run_train_iterations`` so that every call of the
+    trainer's step ``attr`` is stamped on the host clock and its kernel A
+    launches are counted; from iteration ``warm`` on the trainer and the
+    step bracket their phases with ``timer``. The wrapped loop ends in a
+    device sync (the epoch's loss mean), stamped last. Returns the
+    original method."""
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    orig = cls.run_train_iterations
+
+    def timed(self, epoch):
+        step = getattr(self, attr)
+        stamps, launches = [], []
+
+        def stamped(*args):
+            if timer is not None and len(stamps) == warm:
+                self.timer = step.timer = timer
+            stamps.append(time.perf_counter())
+            n0 = ka.spatial_sum_sumsq.launches
+            out = step(*args)
+            launches.append(ka.spatial_sum_sumsq.launches - n0)
+            return out
+
+        setattr(self, attr, stamped)
+        try:
+            orig(self, epoch)
+        finally:
+            setattr(self, attr, step)
+            self.timer = step.timer = None
+        stamps.append(time.perf_counter())
+        cap.update(trainer=self, stamps=stamps, step_launches=launches)
+
+    cls.run_train_iterations = timed
+    return orig
+
+
+def training_paths(torch, dev, a_row):
+    """The trainer and the distillation trainer at full width (docstring
+    steps 7-9); adds the training-shape fields to kernel A's row."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_train_")
+    env = {"nnUNet_raw": os.path.join(root, "raw"),
+           "nnUNet_preprocessed": os.path.join(root, "preprocessed"),
+           "nnUNet_results": os.path.join(root, "results")}
+    old = {k: os.environ.get(k) for k in list(env) + [
+        "FNNT_ITERS_PER_EPOCH", "FNNT_VAL_ITERS_PER_EPOCH",
+        "FNNT_NUM_EPOCHS"]}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        plans = write_train_dataset(root)
+        print(f"train: 4 synthetic cases (1, {', '.join(map(str, TRAIN_CASE))})"
+              f" and plans written in {time.perf_counter() - t0:.3f} s")
+        train_main_path(torch, dev, a_row)
+        torch.cuda.empty_cache()
+        distill_main_path(torch, dev, root, plans)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def train_main_path(torch, dev, a_row, iters=12, warm=3):
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import PhaseTimer
+    from fast_nnunet_tpu_torch.models.blocks import StackedConvBlocks
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.run.run_training import run_training
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
+    from fast_nnunet_tpu_torch.training.schedules import poly_lr
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    timer = PhaseTimer()
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm, timer)
+    orig_init = NNUNetTrainer.initialize
+
+    def init_and_hook(self):
+        orig_init(self)
+        conv = self.network.encoder.stages["stage_0"].blocks["block_0"].conv
+
+        def grab(module, inputs, output):  # returns None: output unchanged
+            cap.setdefault("a", output.detach())
+
+        cap["hook"] = conv.register_forward_hook(grab)
+
+    NNUNetTrainer.initialize = init_and_hook
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = run_training(TRAIN_DS, "3d_fullres", 0, device=dev)
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+        NNUNetTrainer.initialize = orig_init
+    wall = time.perf_counter() - t0
+    run_launches = ka.spatial_sum_sumsq.launches
+    cap["hook"].remove()
+    net = trainer.network
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    with open(os.path.join(trainer.output_folder, "validation",
+                           "summary.json")) as f:
+        summary = json.load(f)
+    remat = trainer._use_remat()
+    x1 = torch.zeros((1, 1, *TRAIN_PATCH), device=dev)
+    n_gate, n_gate_remat = gated_norms(torch, net, x1)
+    predicted = n_gate + n_gate_remat
+    print(f"train: teacher PlainConvUNet features "
+          f"{TEACHER_ARCH['features_per_stage']}, {TRAIN_K} classes, patch "
+          f"{TRAIN_PATCH}, batch 2, bf16 compute / f32 parameters, remat "
+          f"{remat!r}; run_training ({iters} iterations, 2 validation "
+          f"iterations, final validation of 1 case) {wall:.3f} s")
+    print(f"train: kernel A launches per train step {cap['step_launches']} "
+          f"(predicted {predicted}: {n_gate} norms at >= 4096 voxels per "
+          f"forward, {n_gate_remat} recomputed by remat); {run_launches} in "
+          f"the whole run")
+    check(all(n == predicted for n in cap["step_launches"]),
+          f"kernel A launches per step {cap['step_launches']} != {predicted}")
+    tl = trainer.logger.logging
+    check(np.isfinite(tl["train_losses"][0]) and
+          np.isfinite(tl["val_losses"][0]),
+          f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
+    dice = summary["foreground_mean"]["Dice"]
+    print(f"train: epoch train loss {tl['train_losses'][0]:.4f}, val loss "
+          f"{tl['val_losses'][0]:.4f}, pseudo-Dice {tl['mean_fg_dice'][0]:.4f}"
+          f"; final validation summary.json foreground Dice {dice}")
+
+    # ---- cached: one pinned device batch through the step function
+    batch = trainer.dataloader_train.sampler.generate_batch(
+        np.random.RandomState(0))
+    data, targets = trainer.batch_to_device(batch)
+    opt = nnunet_sgd(net.parameters(), poly_lr(trainer.initial_lr, 1000))
+    step = make_train_step(net, opt, **trainer._step_kwargs())
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(10):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(data, targets))
+    torch.cuda.synchronize()
+    cached = (time.perf_counter() - t0) / (10 - warm)
+    peak_remat = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite cached losses {losses}")
+    check(losses[-1] < losses[0], f"cached-batch loss did not fall: {losses}")
+
+    # remat off on the same network, optimizer and batch, so that both peaks
+    # hold the same resident tensors
+    stacks = [m for m in net.modules()
+              if isinstance(m, StackedConvBlocks) and m.remat]
+    for m in stacks:
+        m.remat = False
+    try:
+        step(data, targets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(data, targets)
+        torch.cuda.synchronize()
+        cached_off = (time.perf_counter() - t0) / 3
+        peak_off = torch.cuda.max_memory_allocated()
+    finally:
+        for m in stacks:
+            m.remat = True
+    f_fwd, f_remat = conv_flops(torch, net, data[:1])
+    flops = 2 * (3 * f_fwd + f_remat)   # batch 2; the hook ran batch 1
+    mfu = flops / cached / BF16_TENSOR_OPS_PER_S
+    mfu_fed = flops / fed / BF16_TENSOR_OPS_PER_S
+    print(f"train: warm seconds per iteration fed {fed:.4f} (iterations "
+          f"{warm}-{iters - 1}, dataloader), cached {cached:.4f} (one device "
+          f"batch, {10 - warm} steps), cached with remat off "
+          f"{cached_off:.4f}")
+    print("train: phase ms per fed iteration (CUDA events) " + json.dumps(
+        {k: round(v, 3) for k, v in phases.items()}))
+    print(f"train: peak device memory {peak_remat / 2**30:.2f} GiB with remat "
+          f"{remat!r}, {peak_off / 2**30:.2f} GiB with remat off")
+    print(f"train: FLOPs per step {flops:.4e} (3 x {2 * f_fwd:.4e} forward + "
+          f"{2 * f_remat:.4e} recomputed); mfu {mfu:.4f} cached, {mfu_fed:.4f}"
+          f" fed (of 989 TFLOP/s dense bf16)")
+    print(f"train: cached-batch losses {[round(v, 4) for v in losses]}")
+    train_json = {"fed_s_per_iter": fed, "cached_s_per_iter": cached,
+                  "cached_s_per_iter_remat_off": cached_off,
+                  "phases_ms": phases, "peak_gib_remat": peak_remat / 2**30,
+                  "peak_gib_remat_off": peak_off / 2**30,
+                  "flops_per_step": flops, "mfu": mfu, "mfu_fed": mfu_fed,
+                  "launches_per_step": cap["step_launches"],
+                  "predicted_launches": predicted}
+    del opt, step
+    torch.cuda.empty_cache()
+    kernel_a_train_check(torch, cap["a"], cap["step_launches"][0], a_row)
+    print(json.dumps({"train": train_json}))
+    trainer.network = None
+    cap.clear()
+
+
+def kernel_a_train_check(torch, x, launches_per_step, a_row):
+    """Kernel A at the widest training call: forward against the plain
+    version (A's f32 bound), the backward through SpatialSumSumsq against
+    the plain version's autograd on the same values in float32 (1e-5
+    relative to the largest gradient), timed beside its bound and the
+    library reductions."""
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    s_k, q_k = ka.spatial_sum_sumsq(x)
+    s_p, q_p = ka.spatial_sum_sumsq_plain(x)
+    absum = x.float().abs().reshape(x.shape[0], x.shape[1], -1).sum(-1)
+    ok = bool(((s_k - s_p).abs() <= 1e-5 * absum + 1e-6).all()
+              and ((q_k - q_p).abs() <= 1e-5 * q_p + 1e-6).all())
+    err = float(max((s_k - s_p).abs().max(), (q_k - q_p).abs().max()))
+    check(ok, f"kernel A at the training shape outside tolerance ({err})")
+
+    g = torch.Generator(device=x.device).manual_seed(0)
+    gs = torch.randn(x.shape[:2], generator=g, device=x.device)
+    gq = torch.randn(x.shape[:2], generator=g, device=x.device)
+    xk = x.float().requires_grad_()
+    s, q = ka.SpatialSumSumsq.apply(xk)
+    (dk,) = torch.autograd.grad((s * gs + q * gq).sum(), xk)
+    del s, q, xk
+    xp = x.float().requires_grad_()
+    sp, qp = ka.spatial_sum_sumsq_plain(xp)
+    (dp,) = torch.autograd.grad((sp * gs + qp * gq).sum(), xp)
+    del sp, qp, xp
+    grad_err = float((dk - dp).abs().max() / dp.abs().max())
+    check(grad_err <= 1e-5, f"SpatialSumSumsq backward differs from the "
+          f"plain version's autograd: {grad_err} relative")
+    del dk, dp
+    torch.cuda.empty_cache()
+
+    ms = time_ms(torch, lambda: ka.spatial_sum_sumsq(x))
+    plain_ms = time_ms(torch, lambda: ka.spatial_sum_sumsq_plain(x), n=3,
+                       warmup=1)
+    dims = tuple(range(2, x.dim()))
+    lib_ms = time_ms(torch, lambda: (x.float().sum(dims),
+                                     x.float().square().sum(dims)))
+    nbytes = x.numel() * x.element_size() + 2 * x.shape[0] * x.shape[1] * 4
+    bms, bby = bound(nbytes, 3 * x.numel())
+    a_row["train"] = {
+        "launches_per_step": launches_per_step, "max_abs_err": err,
+        "grad_max_rel_err": grad_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": bby, "bound_share": bms / ms,
+        "library_ms": lib_ms, "bytes": nbytes, "rows": x.shape[0] * x.shape[1],
+        "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}"}
+    print(f"kernel spatial_sum_sumsq (training shape): err {err}, backward "
+          f"rel err {grad_err:.3e}, {ms:.4f} ms vs bound {bms:.4f} ms "
+          f"({bby}, {nbytes} bytes, share {bms / ms:.3f}), plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, {launches_per_step} "
+          f"launches per train step; {a_row['train']['shape']}, "
+          f"{a_row['train']['rows']} rows")
+
+
+def distill_main_path(torch, dev, root, plans, iters=8, warm=2):
+    import numpy as np
+    from fast_nnunet_tpu_torch.models.factory import \
+        build_network_from_arch_dict
+    from fast_nnunet_tpu_torch.models.unet import (init_he_normal_,
+                                                   params_to_jax)
+    from fast_nnunet_tpu_torch.run.distillation_train import \
+        run_distillation_training
+    from fast_nnunet_tpu_torch.training.checkpoint import save_checkpoint
+    from fast_nnunet_tpu_torch.training.distill import \
+        NNUNetDistillationTrainer
+    from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p, save_json
+
+    t0 = time.perf_counter()
+    teacher = os.path.join(root, "teacher")
+    maybe_mkdir_p(teacher)
+    save_json(plans, os.path.join(teacher, "plans.json"))
+    net = build_network_from_arch_dict(TRAIN_ARCH, 1, TRAIN_K,
+                                       trainable=True)
+    for f in range(5):
+        maybe_mkdir_p(os.path.join(teacher, f"fold_{f}"))
+        save_checkpoint(os.path.join(teacher, f"fold_{f}",
+                                     "checkpoint_final.fnnx"),
+                        network_weights=params_to_jax(
+                            init_he_normal_(net, 100 + f)),
+                        init_args={"fold": f})
+    del net
+    print(f"distill: 5 teacher folds of seeded random teacher weights "
+          f"written in {time.perf_counter() - t0:.3f} s")
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="1", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetDistillationTrainer, "distill_step", cap,
+                            warm)
+    t0 = time.perf_counter()
+    try:
+        trainer = run_distillation_training(TRAIN_DS, "3d_fullres", 0,
+                                            teacher_folder=teacher,
+                                            device=dev)
+    finally:
+        NNUNetDistillationTrainer.run_train_iterations = orig
+    wall = time.perf_counter() - t0
+    st = cap["stamps"]
+    per_iter = (st[-1] - st[warm]) / (iters - warm)
+    lg = trainer.logger.logging
+    seg, dist = lg["train_seg_losses"][0], lg["train_distill_losses"][0]
+    feats = [st.blocks["block_0"].conv.out_channels
+             for st in trainer.network.encoder.stages.values()]
+    print(f"distill: student features {feats}, {len(trainer.teachers)} teacher "
+          f"folds {trainer.teacher_fold}, alpha {trainer.alpha}, T "
+          f"{trainer.temperature}; run_distillation_training ({iters} "
+          f"iterations, 1 validation iteration, final validation) "
+          f"{wall:.3f} s")
+    print(f"distill: warm seconds per iteration {per_iter:.4f} (iterations "
+          f"{warm}-{iters - 1}); kernel A launches per step "
+          f"{cap['step_launches']}; epoch seg loss {seg:.4f}, distill loss "
+          f"{dist:.4f}, total {lg['train_losses'][0]:.4f}")
+    check(len(trainer.teachers) == 5, "not 5 teacher folds")
+    check(np.isfinite(seg) and np.isfinite(dist) and dist > 0,
+          f"distillation losses seg {seg} distill {dist}")
+    x1 = torch.zeros((1, 1, *TRAIN_PATCH), device=dev)
+    s_gate, s_remat = gated_norms(torch, trainer.network, x1)
+    t_gate, _ = gated_norms(torch, trainer.teachers[0], x1)
+    predicted = s_gate + s_remat + len(trainer.teachers) * t_gate
+    print(f"distill: predicted kernel A launches per step {predicted} "
+          f"(student {s_gate} + {s_remat} recomputed, "
+          f"{len(trainer.teachers)} teachers x {t_gate})")
+    check(all(n == predicted for n in cap["step_launches"]),
+          f"kernel A launches per distillation step {cap['step_launches']}"
+          f" != {predicted}")
+    print(json.dumps({"distill": {"s_per_iter": per_iter, "seg_loss": seg,
+                                  "distill_loss": dist,
+                                  "launches_per_step": cap["step_launches"],
+                                  "predicted_launches": predicted}}))
+    trainer.teachers = []
+    trainer.network = None
+
+
+def small_train_step(torch, dev):
+    """Three SGD steps of a narrow training network, fp32 with TF32 off and
+    deterministic cuDNN, cuda (kernel A) vs cpu (plain version): losses
+    within 1e-4 relative, parameters within 1e-5 absolute."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.models.unet import params_from_jax
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
+    from fast_nnunet_tpu_torch.training.schedules import poly_lr
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(3):
+        x = rng.randn(2, 1, 32, 32, 32).astype(np.float32)
+        lab = rng.randint(0, 4, (2, 32, 32, 32))
+        batches.append((torch.from_numpy(x), (
+            torch.from_numpy(lab), torch.from_numpy(lab[:, ::2, ::2, ::2]
+                                                    .copy()))))
+    tree = random_plain_params(SMALL_ARCH, 1, 4, seed=6)
+    res = []
+    try:
+        for d in (dev, torch.device("cpu")):
+            net = params_from_jax(get_network_from_plans(
+                "PlainConvUNet", SMALL_ARCH, (), 1, 4,
+                compute_dtype=torch.float32, norm_onepass=True,
+                trainable=True), tree).to(d)
+            opt = nnunet_sgd(net.parameters(), poly_lr(1e-2, 10))
+            step = make_train_step(net, opt, n_ds_levels=2)
+            n0 = ka.spatial_sum_sumsq.launches
+            losses = [float(step(x.to(d), tuple(t.to(d) for t in tg)))
+                      for x, tg in batches]
+            res.append((losses, [p.detach().cpu() for p in
+                                 net.parameters()],
+                        ka.spatial_sum_sumsq.launches - n0))
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cudnn.deterministic = prev
+    (lc, pc, n_k), (lp, pp, _) = res
+    lc, lp = np.array(lc), np.array(lp)
+    loss_rel = float(np.abs(lc - lp).max() / np.abs(lp).max())
+    p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    print(f"small: fp32 train step x3 cuda ({n_k} kernel A "
+          f"launches) vs cpu: losses {lc.round(6).tolist()} vs "
+          f"{lp.round(6).tolist()}, max loss rel diff {loss_rel:.3e} "
+          f"(bound 1e-4), max parameter diff {p_err:.3e} (bound 1e-5)")
+    check(n_k > 0, "kernel A not launched in the small step")
+    check(loss_rel <= 1e-4 and p_err <= 1e-5,
+          f"small train step cuda vs cpu: loss {loss_rel}, params {p_err}")
 
 
 if __name__ == "__main__":

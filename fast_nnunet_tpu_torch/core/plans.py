@@ -1,6 +1,6 @@
 """Plans handling: the subset of fast_nnunet_tpu/core/plans.py that the turbo
-loader, the preprocessor, the predictor and the export read, copied (same
-plans.json schema, inheritance resolution). Image reader/writers resolve to
+loader, the preprocessor, the predictor, the export and the trainers read,
+copied (same plans.json schema, inheritance resolution). Image reader/writers resolve to
 the port's NIfTI classes only."""
 import json
 from typing import List, Optional, Union
@@ -15,8 +15,25 @@ class ConfigurationManager:
         self.configuration = configuration_dict
 
     @property
+    def data_identifier(self) -> str:
+        return self.configuration["data_identifier"]
+
+    @property
+    def batch_size(self) -> int:
+        return self.configuration["batch_size"]
+
+    @property
+    def batch_dice(self) -> bool:
+        return self.configuration["batch_dice"]
+
+    @property
     def patch_size(self) -> List[int]:
         return list(self.configuration["patch_size"])
+
+    @property
+    def pool_op_kernel_sizes(self) -> List[List[int]]:
+        return [list(s) for s in
+                self.configuration["architecture"]["arch_kwargs"]["strides"]]
 
     @property
     def spacing(self) -> List[float]:
@@ -104,6 +121,14 @@ class PlansManager:
                 regions_class_order=dataset_json.get("regions_class_order"),
                 **kwargs)
         return self._label_manager_cache[key]
+
+    @property
+    def dataset_name(self) -> str:
+        return self.plans["dataset_name"]
+
+    @property
+    def plans_name(self) -> str:
+        return self.plans["plans_name"]
 
     @property
     def transpose_forward(self) -> List[int]:

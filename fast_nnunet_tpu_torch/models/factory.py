@@ -5,8 +5,9 @@ Plans name their classes by the reference's dotted paths
 (``dynamic_network_architectures.architectures.unet.PlainConvUNet``,
 ``torch.nn.modules.conv.Conv3d``, ...); the last component is what counts,
 as in the JAX package. Ported: ``PlainConvUNet`` and ``LiteNNUNetStudent``
-in 3D with InstanceNorm. 2D, the residual-encoder U-Nets and BatchNorm
-raise ``NotImplementedError``.
+in 3D with InstanceNorm, in the inference form or, with ``norm_onepass``,
+``remat`` and ``trainable``, the training form (models/unet.py). 2D, the
+residual-encoder U-Nets and BatchNorm raise ``NotImplementedError``.
 """
 from typing import Optional, Sequence, Union
 
@@ -41,13 +42,15 @@ def _negative_slope(nonlin_name: Optional[str],
 
 def build_network_from_arch_dict(architecture: dict, input_channels: int,
                                  num_classes: int,
-                                 compute_dtype: torch.dtype = torch.bfloat16
-                                 ) -> PlainConvUNet:
+                                 compute_dtype: torch.dtype = torch.bfloat16,
+                                 remat=False, norm_onepass: bool = False,
+                                 trainable: bool = False) -> PlainConvUNet:
     """architecture = plans['configurations'][cfg]['architecture']."""
     return get_network_from_plans(
         architecture["network_class_name"], architecture["arch_kwargs"],
         architecture.get("_kw_requires_import", ()), input_channels,
-        num_classes, compute_dtype=compute_dtype)
+        num_classes, compute_dtype=compute_dtype, remat=remat,
+        norm_onepass=norm_onepass, trainable=trainable)
 
 
 def get_network_from_plans(arch_class_name: str, arch_kwargs: dict,
@@ -55,8 +58,9 @@ def get_network_from_plans(arch_class_name: str, arch_kwargs: dict,
                            input_channels: int, output_channels: int,
                            allow_init: bool = True,
                            deep_supervision: Union[bool, None] = None,
-                           compute_dtype: torch.dtype = torch.bfloat16
-                           ) -> PlainConvUNet:
+                           compute_dtype: torch.dtype = torch.bfloat16,
+                           remat=False, norm_onepass: bool = False,
+                           trainable: bool = False) -> PlainConvUNet:
     """The JAX function's signature (``dtype`` becomes ``compute_dtype``;
     ``allow_init`` / ``deep_supervision`` are accepted and unused, as
     there: deep supervision is a forward flag)."""
@@ -92,4 +96,5 @@ def get_network_from_plans(arch_class_name: str, arch_kwargs: dict,
         norm_eps=float((kw.get("norm_op_kwargs") or {}).get("eps", 1e-5)),
         nonlin_negative_slope=_negative_slope(kw.get("nonlin"),
                                               kw.get("nonlin_kwargs")),
-        dim=dim, compute_dtype=compute_dtype)
+        dim=dim, compute_dtype=compute_dtype, norm_onepass=norm_onepass,
+        remat=remat, trainable=trainable)

@@ -23,6 +23,12 @@ version's summation order, so the two agree to f32 rounding:
 
 On a CPU tensor the wrapper runs :func:`spatial_sum_sumsq_plain`; on a CUDA
 tensor it launches the kernel or raises.
+
+Training: :class:`SpatialSumSumsq` puts the wrapper under autograd for the
+one-pass training InstanceNorm (models/blocks.py). The JAX package has no
+backward kernel for these statistics (XLA differentiates the reductions), and
+neither does the port: the backward is plain torch, d/dx = g_sum + 2 x g_sumsq
+broadcast over the spatial dims, computed in f32 and returned in x's dtype.
 """
 from typing import Tuple
 
@@ -34,9 +40,11 @@ from . import _build
 def spatial_sum_sumsq_plain(x: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's contract, summed in float64
-    (so that, as the reference, it carries no summation drift of its own)."""
+    (so that, as the reference, it carries no summation drift of its own).
+    A float64 input keeps float64 results (the gradient check runs so)."""
+    out = torch.float64 if x.dtype == torch.float64 else torch.float32
     xd = x.reshape(x.shape[0], x.shape[1], -1).double()
-    return xd.sum(-1).float(), (xd * xd).sum(-1).float()
+    return xd.sum(-1).to(out), (xd * xd).sum(-1).to(out)
 
 
 def spatial_sum_sumsq(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,3 +78,23 @@ def spatial_sum_sumsq(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 spatial_sum_sumsq.launches = 0
+
+
+class SpatialSumSumsq(torch.autograd.Function):
+    """``(sum, sumsq) = SpatialSumSumsq.apply(x)`` with a gradient: forward
+    through :func:`spatial_sum_sumsq` (the kernel on the card, counted in its
+    ``launches``; the plain version on the CPU), backward in plain torch."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor):
+        ctx.save_for_backward(x)
+        return spatial_sum_sumsq(x)
+
+    @staticmethod
+    def backward(ctx, g_sum: torch.Tensor, g_sumsq: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        shape = tuple(x.shape[:2]) + (1,) * (x.dim() - 2)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        dx = x.to(dt) * (2 * g_sumsq.to(dt).reshape(shape)) \
+            + g_sum.to(dt).reshape(shape)
+        return dx.to(x.dtype)

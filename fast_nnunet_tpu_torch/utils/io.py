@@ -1,5 +1,6 @@
-"""Small filesystem/JSON helpers (the subset of fast_nnunet_tpu/utils/io.py
-that the turbo loader and the predictor use, copied)."""
+"""Small filesystem/JSON/pickle helpers (the subset of
+fast_nnunet_tpu/utils/io.py that the port uses, copied)."""
+import gzip
 import json
 import os
 import pickle
@@ -14,6 +15,10 @@ def join(*args) -> str:
 
 def isfile(p: str) -> bool:
     return os.path.isfile(p)
+
+
+def isdir(p: str) -> bool:
+    return os.path.isdir(p)
 
 
 def maybe_mkdir_p(p: str) -> None:
@@ -49,6 +54,12 @@ def save_json(obj, fname: str, sort_keys: bool = True, indent: int = 4) -> None:
 def save_pickle(obj, fname: str) -> None:
     with open(fname, "wb") as f:
         pickle.dump(obj, f)
+
+
+def load_pickle(fname: str):
+    opener = gzip.open if fname.endswith(".gz") else open
+    with opener(fname, "rb") as f:
+        return pickle.load(f)
 
 
 def _entries(folder: str, test, prefix: Optional[str], suffix: Optional[str],

@@ -323,3 +323,95 @@ def test_scatter_accumulate_rejects_what_it_cannot_take(cuda_device):
     fused_scatter_accumulate(acc, lg, gf, ok, 0)  # nothing to launch
     assert fused_scatter_accumulate.launches == n0
 
+
+
+# ------------------------------------------- kernel A under the training norm
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_spatial_sum_sumsq_autograd_on_card(cuda_device, dtype):
+    """SpatialSumSumsq: the forward is one kernel A launch within its f32
+    bound; the backward (plain torch) equals the plain version's autograd,
+    within 1e-5 relative in float32 and one bf16 rounding in bfloat16."""
+    from fast_nnunet_tpu_torch.ops.stats import SpatialSumSumsq
+    g = torch.Generator().manual_seed(3)
+    shape = (2, 8, 20, 24, 32)
+    x = (torch.randn(shape, generator=g) * 2 + 1).to(getattr(torch, dtype))
+    gs, gq = torch.randn(2, 8, generator=g), torch.randn(2, 8, generator=g)
+    xk = x.to(cuda_device).requires_grad_()
+    n0 = spatial_sum_sumsq.launches
+    s, q = SpatialSumSumsq.apply(xk)
+    assert spatial_sum_sumsq.launches == n0 + 1
+    (dk,) = torch.autograd.grad((s * gs.to(cuda_device)
+                                 + q * gq.to(cuda_device)).sum(), xk)
+    xp = x.clone().requires_grad_()
+    sp, qp = spatial_sum_sumsq_plain(xp)
+    (dp,) = torch.autograd.grad((sp * gs + qp * gq).sum(), xp)
+    scale = x.float().abs().reshape(2, 8, -1).sum(-1)
+    assert ((s.detach().cpu() - sp.detach()).abs()
+            <= 1e-5 * scale + 1e-6).all()
+    rel = 1e-5 if dtype == "float32" else 2.0 ** -7  # one bf16 ulp
+    torch.testing.assert_close(dk.cpu().float(), dp.float(), rtol=rel,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_training_norms_launch_kernel_a(cuda_device, remat):
+    """A training network on the card: every one-pass norm at >= 4096
+    voxels launches kernel A in the forward, and again in the backward's
+    recompute when its stack is checkpointed; none falls back."""
+    net = get_network_from_plans("PlainConvUNet", ARCH, (), 1, K,
+                                 compute_dtype=torch.bfloat16,
+                                 norm_onepass=True, remat=remat,
+                                 trainable=True).to(cuda_device)
+    x = torch.randn(2, 1, 32, 32, 32, device=cuda_device)
+    n0 = spatial_sum_sumsq.launches
+    out = net(x, deep_supervision=True)
+    n_fwd = spatial_sum_sumsq.launches - n0
+    # 32^3 full-res stacks (encoder 0, decoder 1) and 16^3 (encoder 1,
+    # decoder 0): 8 norms; 8^3 = 512 voxels is under the gate
+    assert n_fwd == 8
+    sum(o.float().mean() for o in out).backward()
+    assert spatial_sum_sumsq.launches - n0 == n_fwd * (2 if remat else 1)
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters()
+               if p.grad is not None)
+
+
+def test_train_step_cuda_matches_cpu(cuda_device):
+    """Three SGD steps of a small training network, fp32 with TF32 off and
+    deterministic cuDNN, on the card (kernel A) and on the CPU (plain
+    version): losses within 1e-4 relative, parameters within 1e-5."""
+    from fast_nnunet_tpu_torch.models.unet import params_from_jax
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
+    from fast_nnunet_tpu_torch.training.schedules import poly_lr
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(3):
+        x = rng.randn(2, 1, 32, 32, 32).astype(np.float32)
+        lab = rng.randint(0, K, (2, 32, 32, 32))
+        batches.append((torch.from_numpy(x), (torch.from_numpy(lab),
+                        torch.from_numpy(lab[:, ::2, ::2, ::2].copy()))))
+    res = {}
+    try:
+        for dev in (cuda_device, torch.device("cpu")):
+            net = get_network_from_plans(
+                "PlainConvUNet", ARCH, (), 1, K, compute_dtype=torch.float32,
+                norm_onepass=True, trainable=True)
+            net = params_from_jax(net, plain_params(6)).to(dev)
+            opt = nnunet_sgd(net.parameters(), poly_lr(1e-2, 10))
+            step = make_train_step(net, opt, n_ds_levels=2)
+            n0 = spatial_sum_sumsq.launches
+            losses = [float(step(x.to(dev), tuple(t.to(dev) for t in tg)))
+                      for x, tg in batches]
+            res[dev.type] = (losses, [p.detach().cpu() for p in
+                                      net.parameters()],
+                             spatial_sum_sumsq.launches - n0)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic \
+            = prev
+    assert res["cuda"][2] > 0 and res["cpu"][2] == 0
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
