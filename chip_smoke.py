@@ -7,8 +7,8 @@ the card. Run from the repository root:
 
 1. Prints the card (``nvidia-smi`` name and power limit), builds the
    hand-written kernels from fast_nnunet_tpu_torch/csrc (timed) and prints
-   what ptxas reports for kernels B and C (registers, static shared memory,
-   spills, stack).
+   what ptxas reports for kernels A, B and C (registers, static shared
+   memory, spills, stack).
 2. s2d main path at full width: the bone_turbo r=2 distilled student (6
    stages, features 16..160, 61 classes; seeded random weights in the JAX
    package's tree layout, loaded through params_from_jax) over a 512x512x500
@@ -20,8 +20,12 @@ the card. Run from the repository root:
 3. Kernels A, B, C at that path's shapes, on tensors taken from it, against
    their plain PyTorch versions (A within f32 summation tolerance, B and C
    bit for bit, C in both accumulator modes), timed beside their bound, their
-   plain version and, where one exists, a library call; B and C with their
-   launch plans, C with whether its features took the 16-byte path.
+   plain version and, where one exists, a library call; A, B and C with
+   their launch plans, C with whether its features took the 16-byte path.
+   Every ``ms`` is CUDA events around calls launched from Python; kernel A
+   adds ``device_ms``, the same calls replayed from a CUDA graph (its
+   smaller calls take less than their Python launch), both over copies of
+   its input that together exceed the L2.
 4. Plain full-res path at full width (bench.py's plain contract): the same
    student as a PlainConvUNet through ``SlidingWindowEngine.
    predict_segmentation`` on a 512^3 (rand - 0.5) * 2 volume, patch
@@ -51,14 +55,19 @@ the card. Run from the repository root:
    against the count the 4096-voxel gate predicts, FLOPs per step and
    ``mfu``; the loss must be finite and fall over 10 cached steps.
 8. Kernel A at the widest training call (captured from the run), forward
-   against its plain version and ``autograd.grad`` through
-   ``SpatialSumSumsq`` against the plain version's autograd (float32, 1e-5
-   relative); the result is A's row's ``train`` fields.
+   against its plain version, a nearly constant bf16 row (0.7 + 1e-3 noise)
+   at that shape, and ``autograd.grad`` through ``SpatialSumSumsq`` against
+   the plain version's autograd (float32, 1e-5 relative); the result is A's
+   row's ``train`` fields. Every distinct (shape, dtype) A is launched with
+   in one train step (captured from iteration 1) is checked against its
+   plain version, for bit-equality of two calls, and timed: A's row's
+   ``train_shapes``.
 9. Distillation (``distill:``): 5 teacher folds of seeded random teacher
    weights written with the port's ``save_checkpoint``, then
    ``run_distillation_training`` (student r = 2, alpha 0.3, T 3.0) for 8
    iterations: seconds per iteration, kernel A launches per step, seg and
-   distill losses (finite).
+   distill losses (finite); A's calls of one distillation step go into
+   ``train_shapes`` as in 8.
 10. A small training step cuda vs cpu (fp32, TF32 off, deterministic cuDNN,
    3 steps): losses within 1e-4 relative, parameters within 1e-5.
 
@@ -67,6 +76,7 @@ bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero without it.
 """
 import configparser
+import contextlib
 import json
 import os
 import subprocess
@@ -137,10 +147,46 @@ def time_ms(torch, fn, n=10, warmup=2):
     return start.elapsed_time(end) / n
 
 
+def time_graph_ms(torch, fn, n=20):
+    """Mean device milliseconds of fn over n calls captured in one CUDA
+    graph and replayed once: device time without the host's launch cost
+    between calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bound(bytes_moved, ops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stats_error(torch, got, ref, x):
+    """(max abs error, within kernel A's tolerance) of (sum, sumsq) ``got``
+    against the plain version's ``ref`` for input x: |d sum| <= 1e-5 *
+    sum|x| + 1e-6 and |d sumsq| <= 1e-5 * sumsq + 1e-6 per row."""
+    (s_k, q_k), (s_p, q_p) = got, ref
+    absum = x.float().abs().reshape(x.shape[0], x.shape[1], -1).sum(-1)
+    ok = bool(((s_k - s_p).abs() <= 1e-5 * absum + 1e-6).all()
+              and ((q_k - q_p).abs() <= 1e-5 * q_p + 1e-6).all())
+    return float(max((s_k - s_p).abs().max(), (q_k - q_p).abs().max())), ok
 
 
 def main() -> int:
@@ -185,7 +231,8 @@ def main() -> int:
     print(f"build: kernels built and loaded in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
     for fn, v in sorted(_build.ptxas_report("_kernel").items()):
-        if "s2d_accumulate" in fn or "grouped_argmax" in fn:
+        if any(k in fn for k in ("s2d_accumulate", "grouped_argmax",
+                                 "spatial_sum_sumsq")):
             print(f"build: ptxas {fn}: {v.get('registers')} registers, "
                   f"{v.get('static_smem')} B static shared memory, "
                   f"{v.get('spill_stores')} B spill stores, "
@@ -260,7 +307,7 @@ def main() -> int:
     check(repeat >= 0.999, f"warm-up and counted runs agree only {repeat}")
 
     # --------------------------------------- kernels at the main path's shapes
-    rows = kernel_checks(torch, cap, engine, launches, ka, kb, kc)
+    rows = kernel_checks(torch, cap, engine, launches, kb, kc)
     del cap, engine, pipe, net
     torch.cuda.empty_cache()
 
@@ -350,7 +397,7 @@ def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
     return out, cap
 
 
-def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
+def kernel_checks(torch, cap, engine, launches, kb, kc):
     """Each kernel against its plain version on inputs captured from the
     main path's warm-up run."""
     import numpy as np
@@ -360,6 +407,16 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
     acc, feat, g16, w, b, coords, vk, row_base = cap["c"]
     plane_h = tuple(acc.shape[1:3])
     rows = []
+
+    # ------------------------------------- kernel A (first, as in the forward)
+    a = kernel_a_at(torch, cap["a"], launches["spatial_sum_sumsq"])
+    rows.append({
+        "name": "spatial_sum_sumsq", "route": "cuda",
+        "source": "fast_nnunet_tpu_torch/csrc/stats.cu",
+        "replaces": "fast_nnunet_tpu/ops/pallas_stats.py:58",
+        "launches": launches["spatial_sum_sumsq"],
+        "tolerance": "|d| <= 1e-5 * sum|x| + 1e-6 (sum), 1e-5 * sumsq + 1e-6 "
+                     "(sumsq)", **a})
 
     # ---------------------------------------------------- kernel C (both modes)
     def c_pair(acc_in, g):
@@ -437,40 +494,75 @@ def kernel_checks(torch, cap, engine, launches, ka, kb, kc):
         "shape": f"acc {tuple(acc_b.shape)} bf16, {n_rows} rows from "
                  f"row_base {base_b}"})
 
-    # ---------------------------------------------------------- kernel A
-    x = cap["a"]
-    s_k, q_k = ka.spatial_sum_sumsq(x)
-    s_p, q_p = ka.spatial_sum_sumsq_plain(x)
-    absum = x.float().abs().reshape(x.shape[0], x.shape[1], -1).sum(-1)
-    ok = bool(((s_k - s_p).abs() <= 1e-5 * absum + 1e-6).all()
-              and ((q_k - q_p).abs() <= 1e-5 * q_p + 1e-6).all())
-    err_a = float(max((s_k - s_p).abs().max(), (q_k - q_p).abs().max()))
-    check(ok, f"spatial_sum_sumsq outside tolerance (max abs err {err_a})")
-    ms_a = time_ms(torch, lambda: ka.spatial_sum_sumsq(x))
-    plain_a = time_ms(torch, lambda: ka.spatial_sum_sumsq_plain(x))
-    dims = tuple(range(2, x.dim()))
-    lib_a = time_ms(torch, lambda: (x.float().sum(dims),
-                                    x.float().square().sum(dims)))
-    a_bytes = x.numel() * x.element_size() + 2 * x.shape[0] * x.shape[1] * 4
-    bms, bby = bound(a_bytes, 3 * x.numel())
-    rows.append({
-        "name": "spatial_sum_sumsq", "route": "cuda",
-        "source": "fast_nnunet_tpu_torch/csrc/stats.cu",
-        "replaces": "fast_nnunet_tpu/ops/pallas_stats.py:58",
-        "launches": launches["spatial_sum_sumsq"], "max_abs_err": err_a,
-        "ms": ms_a, "plain_ms": plain_a, "bound_ms": bms, "bound_by": bby,
-        "library_ms": lib_a,
-        "tolerance": "|d| <= 1e-5 * sum|x| (sum), 1e-5 * sumsq (sumsq)",
-        "bytes": a_bytes, "ops": 3 * x.numel(),
-        "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}"})
     for r in rows:
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        dev_ms = f" (device {r['device_ms']:.4f})" if "device_ms" in r else ""
         print(f"kernel {r['name']}: err {r['max_abs_err']} ({r['tolerance']})"
-              f", {r['ms']:.4f} ms vs bound {r['bound_ms']:.4f} ms "
+              f", {r['ms']:.4f} ms{dev_ms} vs bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}, share {r['bound_share']:.3f}), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
               f"{r['launches']} launches per CT; {r['shape']}")
     return rows
+
+
+def l2_cold_copies(torch, x, l2_passes=2):
+    """x and enough clones of it that between two reads of one of them the
+    others move at least ``l2_passes`` times the card's L2: calls that
+    cycle through them read their input from HBM, as the byte bound
+    assumes, even when one input fits in L2 (50 MB on the H100)."""
+    l2 = getattr(torch.cuda.get_device_properties(x.device), "L2_cache_size",
+                 0) or 50 << 20
+    nbytes = x.numel() * x.element_size()
+    n = 1 + max(1, -(-l2_passes * l2 // nbytes))
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def kernel_a_at(torch, x, launches):
+    """Kernel A on x, timed beside its byte bound first (before the checks'
+    temporaries), then against its plain version (A's f32 tolerance) and
+    against itself (two calls bit for bit), with its launch plan, the plain
+    version's and the library reductions' times. ``ms``: 20 calls launched
+    from Python (the yardstick of every kernel row);
+    ``device_ms``: the same 20 calls replayed from a CUDA graph, so without
+    the host's launch cost. Both cycle through :func:`l2_cold_copies`.
+    ``launches``: the count this shape had on its path, for the message."""
+    import itertools
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    xs = l2_cold_copies(torch, x)
+    cyc = itertools.cycle(xs)
+
+    def run():
+        return ka.spatial_sum_sumsq(next(cyc))
+
+    ms = time_ms(torch, run, n=20)
+    device_ms = time_graph_ms(torch, run)
+    del xs, cyc
+    torch.cuda.empty_cache()
+    got = ka.spatial_sum_sumsq(x)
+    again = ka.spatial_sum_sumsq(x)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    err, ok = stats_error(torch, got, ka.spatial_sum_sumsq_plain(x), x)
+    what = f"kernel A at {tuple(x.shape)} {x.dtype} ({launches} launches)"
+    check(ok, f"{what} outside tolerance (max abs err {err})")
+    check(same, f"{what}: two calls differ")
+    plain = time_ms(torch, lambda: ka.spatial_sum_sumsq_plain(x), n=3,
+                    warmup=1)
+    dims = tuple(range(2, x.dim()))
+    lib = time_ms(torch, lambda: (x.float().sum(dims),
+                                  x.float().square().sum(dims)))
+    rows = x.shape[0] * x.shape[1]
+    nbytes = x.numel() * x.element_size() + 2 * rows * 4
+    bms, bby = bound(nbytes, 3 * x.numel())
+    plan = ka.launch_plan(rows, x.numel() // rows, x.element_size(),
+                          torch.cuda.get_device_properties(x.device)
+                          .multi_processor_count, x.data_ptr() % 16 == 0)
+    return {"max_abs_err": err, "bit_equal_repeat": same, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": bby, "bound_share": bms / ms,
+            "device_bound_share": bms / device_ms, "library_ms": lib,
+            "bytes": nbytes, "ops": 3 * x.numel(), "rows": rows,
+            "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}",
+            "plan": {k: plan[k] for k in ("k", "chunk", "vec", "blocks")}}
 
 
 def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):
@@ -818,13 +910,36 @@ def gated_norms(torch, net, x):
     return n["all"], n["remat"]
 
 
+@contextlib.contextmanager
+def kernel_a_calls():
+    """Record kernel A's calls under autograd (``SpatialSumSumsq.apply``,
+    the training norms' route to the kernel): yields {(shape, dtype):
+    [calls, first input]}."""
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    fn = ka.SpatialSumSumsq
+    calls = {}
+    real = fn.apply
+
+    def apply(x):
+        key = (tuple(x.shape), str(x.dtype).split(".")[-1])
+        calls.setdefault(key, [0, x.detach()])[0] += 1
+        return real(x)
+
+    fn.apply = apply
+    try:
+        yield calls
+    finally:
+        del fn.apply  # the inherited classmethod again
+
+
 def stamp_iterations(cls, attr, cap, warm, timer=None):
     """Wrap ``cls.run_train_iterations`` so that every call of the
     trainer's step ``attr`` is stamped on the host clock and its kernel A
-    launches are counted; from iteration ``warm`` on the trainer and the
-    step bracket their phases with ``timer``. The wrapped loop ends in a
-    device sync (the epoch's loss mean), stamped last. Returns the
-    original method."""
+    launches are counted; kernel A's calls of iteration 1 are recorded in
+    ``cap["a_calls"]`` (:func:`kernel_a_calls`); from iteration ``warm`` on
+    the trainer and the step bracket their phases with ``timer``. The
+    wrapped loop ends in a device sync (the epoch's loss mean), stamped
+    last. Returns the original method."""
     from fast_nnunet_tpu_torch.ops import stats as ka
     orig = cls.run_train_iterations
 
@@ -837,7 +952,12 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
                 self.timer = step.timer = timer
             stamps.append(time.perf_counter())
             n0 = ka.spatial_sum_sumsq.launches
-            out = step(*args)
+            if len(stamps) == 2:
+                with kernel_a_calls() as calls:
+                    out = step(*args)
+                cap["a_calls"] = calls
+            else:
+                out = step(*args)
             launches.append(ka.spatial_sum_sumsq.launches - n0)
             return out
 
@@ -874,7 +994,7 @@ def training_paths(torch, dev, a_row):
               f" and plans written in {time.perf_counter() - t0:.3f} s")
         train_main_path(torch, dev, a_row)
         torch.cuda.empty_cache()
-        distill_main_path(torch, dev, root, plans)
+        distill_main_path(torch, dev, root, plans, a_row)
     finally:
         for k, v in old.items():
             if v is None:
@@ -901,28 +1021,14 @@ def train_main_path(torch, dev, a_row, iters=12, warm=3):
     cap = {}
     timer = PhaseTimer()
     orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm, timer)
-    orig_init = NNUNetTrainer.initialize
-
-    def init_and_hook(self):
-        orig_init(self)
-        conv = self.network.encoder.stages["stage_0"].blocks["block_0"].conv
-
-        def grab(module, inputs, output):  # returns None: output unchanged
-            cap.setdefault("a", output.detach())
-
-        cap["hook"] = conv.register_forward_hook(grab)
-
-    NNUNetTrainer.initialize = init_and_hook
     ka.spatial_sum_sumsq.launches = 0
     t0 = time.perf_counter()
     try:
         trainer = run_training(TRAIN_DS, "3d_fullres", 0, device=dev)
     finally:
         NNUNetTrainer.run_train_iterations = orig
-        NNUNetTrainer.initialize = orig_init
     wall = time.perf_counter() - t0
     run_launches = ka.spatial_sum_sumsq.launches
-    cap["hook"].remove()
     net = trainer.network
     st = cap["stamps"]
     fed = (st[-1] - st[warm]) / (iters - warm)
@@ -953,6 +1059,12 @@ def train_main_path(torch, dev, a_row, iters=12, warm=3):
     print(f"train: epoch train loss {tl['train_losses'][0]:.4f}, val loss "
           f"{tl['val_losses'][0]:.4f}, pseudo-Dice {tl['mean_fg_dice'][0]:.4f}"
           f"; final validation summary.json foreground Dice {dice}")
+    # kernel A at this run's shapes, before the peaks below are read
+    widest = max(cap["a_calls"].values(), key=lambda v: v[1].numel())[1]
+    kernel_a_train_check(torch, widest, cap["step_launches"][0], a_row)
+    del widest
+    kernel_a_step_shapes(torch, "train", cap["a_calls"],
+                         cap["step_launches"][1], a_row)
 
     # ---- cached: one pinned device batch through the step function
     batch = trainer.dataloader_train.sampler.generate_batch(
@@ -1018,7 +1130,6 @@ def train_main_path(torch, dev, a_row, iters=12, warm=3):
                   "predicted_launches": predicted}
     del opt, step
     torch.cuda.empty_cache()
-    kernel_a_train_check(torch, cap["a"], cap["step_launches"][0], a_row)
     print(json.dumps({"train": train_json}))
     trainer.network = None
     cap.clear()
@@ -1026,20 +1137,22 @@ def train_main_path(torch, dev, a_row, iters=12, warm=3):
 
 def kernel_a_train_check(torch, x, launches_per_step, a_row):
     """Kernel A at the widest training call: forward against the plain
-    version (A's f32 bound), the backward through SpatialSumSumsq against
-    the plain version's autograd on the same values in float32 (1e-5
-    relative to the largest gradient), timed beside its bound and the
-    library reductions."""
+    version (A's f32 bound), a nearly constant bf16 input of the same shape
+    (0.7 + 1e-3 noise: the drift the per-thread compensation holds off),
+    and the backward through SpatialSumSumsq against the plain version's
+    autograd on the same values in float32 (1e-5 relative to the largest
+    gradient)."""
     from fast_nnunet_tpu_torch.ops import stats as ka
-    s_k, q_k = ka.spatial_sum_sumsq(x)
-    s_p, q_p = ka.spatial_sum_sumsq_plain(x)
-    absum = x.float().abs().reshape(x.shape[0], x.shape[1], -1).sum(-1)
-    ok = bool(((s_k - s_p).abs() <= 1e-5 * absum + 1e-6).all()
-              and ((q_k - q_p).abs() <= 1e-5 * q_p + 1e-6).all())
-    err = float(max((s_k - s_p).abs().max(), (q_k - q_p).abs().max()))
-    check(ok, f"kernel A at the training shape outside tolerance ({err})")
-
+    a = kernel_a_at(torch, x, launches_per_step)
     g = torch.Generator(device=x.device).manual_seed(0)
+    flat = (0.7 + 1e-3 * torch.randn(x.shape, generator=g, device=x.device)
+            ).bfloat16()
+    flat_err, ok = stats_error(torch, ka.spatial_sum_sumsq(flat),
+                               ka.spatial_sum_sumsq_plain(flat), flat)
+    check(ok, f"kernel A on a nearly constant row outside tolerance "
+          f"({flat_err})")
+    del flat
+
     gs = torch.randn(x.shape[:2], generator=g, device=x.device)
     gq = torch.randn(x.shape[:2], generator=g, device=x.device)
     xk = x.float().requires_grad_()
@@ -1055,30 +1168,44 @@ def kernel_a_train_check(torch, x, launches_per_step, a_row):
           f"plain version's autograd: {grad_err} relative")
     del dk, dp
     torch.cuda.empty_cache()
-
-    ms = time_ms(torch, lambda: ka.spatial_sum_sumsq(x))
-    plain_ms = time_ms(torch, lambda: ka.spatial_sum_sumsq_plain(x), n=3,
-                       warmup=1)
-    dims = tuple(range(2, x.dim()))
-    lib_ms = time_ms(torch, lambda: (x.float().sum(dims),
-                                     x.float().square().sum(dims)))
-    nbytes = x.numel() * x.element_size() + 2 * x.shape[0] * x.shape[1] * 4
-    bms, bby = bound(nbytes, 3 * x.numel())
-    a_row["train"] = {
-        "launches_per_step": launches_per_step, "max_abs_err": err,
-        "grad_max_rel_err": grad_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": bby, "bound_share": bms / ms,
-        "library_ms": lib_ms, "bytes": nbytes, "rows": x.shape[0] * x.shape[1],
-        "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}"}
-    print(f"kernel spatial_sum_sumsq (training shape): err {err}, backward "
-          f"rel err {grad_err:.3e}, {ms:.4f} ms vs bound {bms:.4f} ms "
-          f"({bby}, {nbytes} bytes, share {bms / ms:.3f}), plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, {launches_per_step} "
-          f"launches per train step; {a_row['train']['shape']}, "
-          f"{a_row['train']['rows']} rows")
+    a_row["train"] = dict(a, launches_per_step=launches_per_step,
+                          grad_max_rel_err=grad_err,
+                          near_constant_max_abs_err=flat_err)
+    print(f"kernel spatial_sum_sumsq (widest training call): err "
+          f"{a['max_abs_err']}, near-constant row err {flat_err}, backward "
+          f"rel err {grad_err:.3e}, {a['ms']:.4f} ms (device "
+          f"{a['device_ms']:.4f}) vs bound "
+          f"{a['bound_ms']:.4f} ms ({a['bound_by']}, {a['bytes']} bytes, "
+          f"share {a['bound_share']:.3f}), plain {a['plain_ms']:.4f} ms, "
+          f"library {a['library_ms']:.4f} ms, {launches_per_step} launches "
+          f"per train step; {a['shape']}, {a['rows']} rows, plan "
+          f"{a['plan']}")
 
 
-def distill_main_path(torch, dev, root, plans, iters=8, warm=2):
+def kernel_a_step_shapes(torch, path, calls, step_launches, a_row):
+    """Every distinct (shape, dtype) kernel A was launched with in one step
+    of ``path`` (``calls`` from :func:`kernel_a_calls`), checked and timed
+    by :func:`kernel_a_at`; appended to A's row's ``train_shapes``."""
+    n = sum(v[0] for v in calls.values())
+    check(n == step_launches, f"{path}: {n} kernel A calls recorded in one "
+          f"step, {step_launches} launches counted")
+    out = a_row.setdefault("train_shapes", [])
+    for (shape, dtype), (count, x) in sorted(calls.items(),
+                                             key=lambda kv: -kv[1][1].numel()):
+        a = kernel_a_at(torch, x, count)
+        out.append(dict(a, path=path, launches_per_step=count))
+        print(f"kernel spatial_sum_sumsq ({path}, {count} per step): "
+              f"{a['shape']}, k {a['plan']['k']}, {a['ms']:.4f} ms (device "
+              f"{a['device_ms']:.4f}) vs bound {a['bound_ms']:.4f} ms, share "
+              f"{a['bound_share']:.3f} (device {a['device_bound_share']:.3f})"
+              f", err {a['max_abs_err']:.3e}, repeat "
+              f"bit-equal {a['bit_equal_repeat']}, plain "
+              f"{a['plain_ms']:.4f} ms, library {a['library_ms']:.4f} ms")
+    calls.clear()
+    torch.cuda.empty_cache()
+
+
+def distill_main_path(torch, dev, root, plans, a_row, iters=8, warm=2):
     import numpy as np
     from fast_nnunet_tpu_torch.models.factory import \
         build_network_from_arch_dict
@@ -1154,6 +1281,8 @@ def distill_main_path(torch, dev, root, plans, iters=8, warm=2):
                                   "predicted_launches": predicted}}))
     trainer.teachers = []
     trainer.network = None
+    kernel_a_step_shapes(torch, "distill", cap["a_calls"],
+                         cap["step_launches"][1], a_row)
 
 
 def small_train_step(torch, dev):

@@ -40,8 +40,8 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 #: C signatures of csrc/*.cu (pointers, including the stream, as c_void_p)
 SIGNATURES = {
-    # x, dtype, rows, S, vec, sum, sumsq, stream
-    "fnn_spatial_sum_sumsq": [_p, _i, _ll, _ll, _i, _p, _p, _p],
+    # x, dtype, rows, S, chunk, k, vec, sum, sumsq, stream
+    "fnn_spatial_sum_sumsq": [_p, _i, _ll, _ll, _ll, _i, _i, _p, _p, _p],
     # acc, dtype, p0h, Yh, Zh, c8p, K, n_rows, row_base, n_zero, run,
     # stride16, smem, vec16, out, stream
     "fnn_grouped_argmax": [_p] + [_i] * 13 + [_p, _p],

@@ -127,7 +127,8 @@ def test_plain_b_matches_pallas_all_rows_retired(dtype, n_rows, row_base):
     jacc = jnp.asarray(acc, getattr(jnp, dtype))
     cls_j, acc_j = jax_argmax(jacc, K, n_rows, row_base=row_base,
                               n_zero=n_rows, y_block=8, interpret=True)
-    tacc = torch.from_numpy(np.asarray(jacc, np.float32)).to(
+    # a writable copy: the plain version zeroes rows in place
+    tacc = torch.from_numpy(np.array(jacc, np.float32)).to(
         getattr(torch, dtype))
     cls_t = kb.grouped_argmax(tacc, K, n_rows, row_base=row_base,
                               n_zero=n_rows)

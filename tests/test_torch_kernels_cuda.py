@@ -48,6 +48,71 @@ def test_stats_layout_is_checked(cuda_device):
         spatial_sum_sumsq(x.to(memory_format=torch.channels_last_3d))
 
 
+def _stats_within_tolerance(got, x):
+    s, q = got
+    s_ref, q_ref = spatial_sum_sumsq_plain(x)
+    scale = x.float().abs().reshape(x.shape[0], x.shape[1], -1).sum(-1)
+    return bool(((s - s_ref).abs() <= 1e-5 * scale + 1e-6).all()
+                and ((q - q_ref).abs() <= 1e-5 * q_ref + 1e-6).all())
+
+
+@pytest.mark.parametrize("B,C,S,dtype,k,offset", [
+    (1, 1, 300000, "bfloat16", None, 0),   # one row, the plan splits it
+    (1, 1, 300001, "bfloat16", None, 0),   # ... rows not whole 16 B units
+    (1, 1, 300000, "bfloat16", None, 1),   # ... a view 2 bytes off alignment
+    (1, 2, 70001, "float32", 8, 0),        # 2 rows, 8 blocks each, ragged
+    (2, 1, 4099, "bfloat16", 2, 0),
+    (2, 16, 65536, "float32", None, 0),    # 32 rows (split by the plan)
+    (2, 16, 160 * 96 * 96, "bfloat16", None, 0),  # the student's stage 0
+    (2, 32, 40000, "bfloat16", 8, 0),      # 64 rows, 8 blocks each
+    (2, 32, 4097, "bfloat16", 4, 0),       # ... ragged
+    (2, 32, 100, "float32", 8, 0),         # S under one block's stride
+])
+def test_stats_split_matches_plain(cuda_device, B, C, S, dtype, k, offset):
+    """The cluster split (k blocks per row, rank 0 combining the partials
+    through distributed shared memory) against the plain version, on the
+    16-byte and the element path; k None is the wrapper's own plan."""
+    from fast_nnunet_tpu_torch.ops import _build
+    from fast_nnunet_tpu_torch.ops.stats import _launch, _split_plan
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    n = B * C * S
+    base = torch.randn(n + offset, generator=g, device=cuda_device) * 2 + 1
+    x = base.to(getattr(torch, dtype))[offset:].view(B, C, S)
+    if k is None:
+        n0 = spatial_sum_sumsq.launches
+        got = spatial_sum_sumsq(x)
+        assert spatial_sum_sumsq.launches == n0 + 1
+    else:
+        out = torch.empty((2, B, C), device=cuda_device)
+        plan = _split_plan(B * C, S, x.element_size(), k,
+                           x.data_ptr() % 16 == 0)
+        _launch(x, _build.dtype_code(x), B * C, S, plan, out)
+        got = (out[0], out[1])
+    assert _stats_within_tolerance(got, x)
+
+
+def test_stats_near_constant_row_at_the_training_shape(cuda_device):
+    """A nearly constant bf16 activation (air: 0.7 + 1e-3 noise) at the
+    teacher's widest training call: each thread's partials all round the
+    same way, which the per-thread compensation holds off."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (0.7 + 1e-3 * torch.randn((2, 32, 160, 96, 96), generator=g,
+                                  device=cuda_device)).bfloat16()
+    assert _stats_within_tolerance(spatial_sum_sumsq(x), x)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 160, 96, 96), (2, 64, 80, 48, 48),
+                                   (8, 128, 80, 48, 48)])
+def test_stats_two_calls_bit_equal(cuda_device, shape):
+    """Split (the plan's k = 4 and k = 2) and unsplit (the serving call): a
+    fixed reduction order, so two calls give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda_device).bfloat16()
+    a, b = spatial_sum_sumsq(x), spatial_sum_sumsq(x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert _stats_within_tolerance(a, x)
+
+
 # ---------------------------------------------------------- kernel B: argmax
 @pytest.mark.parametrize("dtype,c8p", [("float32", 128), ("bfloat16", 40)])
 def test_finalize_bit_equals_plain(cuda_device, dtype, c8p):
