@@ -70,6 +70,27 @@ the card. Run from the repository root:
    ``train_shapes`` as in 8.
 10. A small training step cuda vs cpu (fp32, TF32 off, deterministic cuDNN,
    3 steps): losses within 1e-4 relative, parameters within 1e-5.
+11. nnU-Net's workflow from a raw dataset (``pipeline:``), all through the
+   port's entry points in this process: 5 training cases and 1 test case
+   of (200, 140, 140) int16 CT at (2.0, 0.9765625, 0.9765625) mm with 61
+   labels, written as .nii.gz; ``fast_nnunet_plan_and_preprocess_torch -d
+   988 -c 3d_fullres --verify_dataset_integrity`` (host seconds for the
+   integrity check, the fingerprint, the plan and preprocessing per case),
+   whose 3d_fullres must equal PIPELINE_3D_FULLRES (the planner's
+   anisotropic 6-stage teacher: (1, 3, 3) first kernels, (1, 2, 2) and
+   (2, 1, 1) strides); ``fast_nnunet_train_torch 988 3d_fullres 0 --npz``
+   with the trainer's defaults, cut to one epoch of 10 iterations and 2
+   validation iterations: fed seconds per iteration, peak memory, kernel A
+   launches per step against the gate's count, every (shape, dtype) A
+   takes in one step checked and timed into A's ``train_shapes``;
+   ``fast_nnunet_find_best_configuration_torch 988 -c 3d_fullres -f 0``
+   (summary Dice finite, postprocessing.json, the instructions);
+   ``fast_nnunet_predict_torch`` on imagesTs with ``--save_probabilities``,
+   with mirror TTA and with ``--disable_tta``; ``fast_nnunet_ensemble_torch``
+   of the two (the mask must equal the argmax of the mean of the two .npz,
+   recomputed with numpy); ``fast_nnunet_apply_postprocessing_torch`` (must
+   equal ``apply_postprocessing`` in memory); ``fast_nnunet_evaluate_simple
+   _torch`` against the test label. One ``{"pipeline": ...}`` JSON line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -116,6 +137,33 @@ TRAIN_PATCH = [160, 96, 96]
 TRAIN_CASE = (200, 140, 140)
 TRAIN_SPACING = [2.0, 0.9765625, 0.9765625]
 TRAIN_DS = "Dataset987_TrainBench"
+# phase 11: a raw CT dataset at the train phase's case geometry, planned by
+# the port's own ExperimentPlanner; its 3d_fullres topology, frozen (a CPU
+# test, tests/test_torch_planning.py, holds it against the JAX planner)
+PIPELINE_DS_ID = 988
+PIPELINE_DS = "Dataset988_PipelineCT"
+PIPELINE_N_TRAIN = 5
+PIPELINE_3D_FULLRES = {
+    "patch_size": [160, 96, 96], "batch_size": 2,
+    "spacing": [2.0, 0.9765625, 0.9765625],
+    "normalization_schemes": ["CTNormalization"], "n_stages": 6,
+    "features_per_stage": [32, 64, 128, 256, 320, 320],
+    "kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 5,
+    "strides": [[1, 1, 1], [1, 2, 2], [2, 2, 2], [2, 2, 2], [2, 2, 2],
+                [2, 1, 1]],
+}
+
+
+def plan_topology(configuration: dict) -> dict:
+    """The keys of PIPELINE_3D_FULLRES from a plans configuration."""
+    arch = configuration["architecture"]["arch_kwargs"]
+    out = {k: configuration[k] for k in ("patch_size", "batch_size",
+                                         "spacing", "normalization_schemes")}
+    out.update({k: json.loads(json.dumps(arch[k])) for k in (
+        "n_stages", "features_per_stage", "kernel_sizes", "strides")})
+    return out
+
+
 SMALL_ARCH = {
     "n_stages": 3, "features_per_stage": [8, 16, 32],
     "kernel_sizes": [[3, 3, 3]] * 3, "strides": [[1, 1, 1]] + [[2, 2, 2]] * 2,
@@ -323,6 +371,8 @@ def main() -> int:
 
     # ------------------------------------------- small model: cuda vs cpu
     small_train_step(torch, dev)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg_s = TurboConfig(patch_size=(32, 32, 32),
@@ -350,6 +400,12 @@ def main() -> int:
     check(n_lab > 1, "small check produced a single label")
     small_plain_sweep(torch)
     golden_predictor(torch)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+
+    # ------------------------------------------- raw dataset -> evaluation
+    pipeline_path(torch, dev, next(r for r in rows
+                                   if r["name"] == "spatial_sum_sumsq"))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -851,6 +907,60 @@ def write_train_dataset(root, n_cases=4, seed=0):
     return plans
 
 
+def write_raw_ct_dataset(raw_root, dataset=PIPELINE_DS, shape=TRAIN_CASE,
+                         spacing=TRAIN_SPACING, n_train=PIPELINE_N_TRAIN,
+                         n_classes=TRAIN_K, seed=0):
+    """A raw nnU-Net dataset of int16 CTs written as .nii.gz through the
+    port's NIfTI writer: ``n_train`` cases in imagesTr/labelsTr and one
+    more in imagesTs/labelsTs, dataset.json with a CT channel. Air is
+    -1024 HU (no voxel is 0, so crop_to_nonzero keeps the whole volume), a
+    soft-tissue ellipsoid 20-60 HU, and one bone cuboid per foreground class
+    (300 + 10 c HU), each in its own cell of a grid, so every class is in
+    every case."""
+    import math
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO, write_nifti
+    from fast_nnunet_tpu_torch.utils.dataset_io import generate_dataset_json
+    from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p
+
+    folder = os.path.join(raw_root, dataset)
+    rng = np.random.RandomState(seed)
+    g = math.ceil((n_classes - 1) ** (1 / 3) - 1e-9)
+    cell = [s // g for s in shape]
+    xs, ys, zs = np.ogrid[tuple(slice(0, s) for s in shape)]
+    body = sum(((c - s / 2) / (0.45 * s)) ** 2
+               for c, s in zip((xs, ys, zs), shape)) <= 1
+    for i in range(n_train + 1):
+        split = "Tr" if i < n_train else "Ts"
+        img = np.where(body, 40, -1024).astype(np.int16)
+        img += rng.randint(-20, 21, shape).astype(np.int16)
+        seg = np.zeros(shape, np.uint8)
+        for c in range(1, n_classes):
+            origin = np.unravel_index(c - 1, (g, g, g))
+            sl = []
+            for d in range(3):
+                size = rng.randint(max(2, cell[d] // 4),
+                                   max(3, cell[d] // 2 + 1))
+                lo = origin[d] * cell[d] + rng.randint(0, cell[d] - size + 1)
+                sl.append(slice(lo, lo + size))
+            seg[tuple(sl)] = c
+            img[tuple(sl)] += 260 + 10 * c
+        for sub in ("images", "labels"):
+            maybe_mkdir_p(os.path.join(folder, sub + split))
+        case = f"case_{i:03d}"
+        write_nifti(os.path.join(folder, "images" + split,
+                                 f"{case}_0000.nii.gz"),
+                    img.transpose(2, 1, 0), spacing=list(spacing)[::-1])
+        NiftiIO().write_seg(seg, os.path.join(folder, "labels" + split,
+                                              case + ".nii.gz"),
+                            {"spacing": list(spacing)})
+    generate_dataset_json(
+        folder, {0: "CT"},
+        {"background": 0, **{f"bone_{c}": c for c in range(1, n_classes)}},
+        n_train, ".nii.gz", dataset_name=dataset)
+    return folder
+
+
 def conv_flops(torch, net, x):
     """(forward FLOPs, FLOPs of the convolutions inside checkpointed stacks)
     of one forward of ``net`` on ``x``: 2 k^3 Cin Cout per output voxel of a
@@ -939,7 +1049,9 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
     ``cap["a_calls"]`` (:func:`kernel_a_calls`); from iteration ``warm`` on
     the trainer and the step bracket their phases with ``timer``. The
     wrapped loop ends in a device sync (the epoch's loss mean), stamped
-    last. Returns the original method."""
+    last; ``cap["peak_bytes"]`` is the peak device memory then. Returns the
+    original method."""
+    import torch
     from fast_nnunet_tpu_torch.ops import stats as ka
     orig = cls.run_train_iterations
 
@@ -968,7 +1080,8 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
             setattr(self, attr, step)
             self.timer = step.timer = None
         stamps.append(time.perf_counter())
-        cap.update(trainer=self, stamps=stamps, step_launches=launches)
+        cap.update(trainer=self, stamps=stamps, step_launches=launches,
+                   peak_bytes=torch.cuda.max_memory_allocated())
 
     cls.run_train_iterations = timed
     return orig
@@ -1283,6 +1396,249 @@ def distill_main_path(torch, dev, root, plans, a_row, iters=8, warm=2):
     trainer.network = None
     kernel_a_step_shapes(torch, "distill", cap["a_calls"],
                          cap["step_launches"][1], a_row)
+
+
+# ------------------------------------------------------------------ pipeline
+@contextlib.contextmanager
+def host_seconds(targets):
+    """Time calls on the host clock: ``targets`` maps a name to (owner,
+    attribute); yields {name: [seconds of each call]}."""
+    spent = {name: [] for name in targets}
+    saved = []
+    for name, (owner, attr) in targets.items():
+        real = getattr(owner, attr)
+        saved.append((owner, attr, real))
+
+        def timed(*args, _real=real, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                spent[_name].append(time.perf_counter() - t0)
+
+        setattr(owner, attr, timed)
+    try:
+        yield spent
+    finally:
+        for owner, attr, real in saved:
+            setattr(owner, attr, real)
+
+
+def pipeline_path(torch, dev, a_row, iters=10, warm=3):
+    """Phase 11 (``pipeline:``): nnU-Net's workflow from a raw dataset
+    through the port's entry points, in process (docstring step 11)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_pipeline_")
+    env = {f"nnUNet_{k}": os.path.join(root, k)
+           for k in ("raw", "preprocessed", "results")}
+    old = {k: os.environ.get(k) for k in list(env) + [
+        "FNNT_ITERS_PER_EPOCH", "FNNT_VAL_ITERS_PER_EPOCH",
+        "FNNT_NUM_EPOCHS"]}
+    os.environ.update(env)
+    try:
+        _pipeline(torch, dev, a_row, root, iters, warm)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _pipeline(torch, dev, a_row, root, iters, warm):
+    import shutil
+    import numpy as np
+    from fast_nnunet_tpu_torch.ensembling.ensemble import ensemble_entry
+    from fast_nnunet_tpu_torch.evaluation.find_best_configuration import \
+        find_best_configuration_entry
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.planning import verify
+    from fast_nnunet_tpu_torch.planning.fingerprint import \
+        DatasetFingerprintExtractor
+    from fast_nnunet_tpu_torch.planning.planner import ExperimentPlanner
+    from fast_nnunet_tpu_torch.postprocessing.connected_components import \
+        apply_postprocessing
+    from fast_nnunet_tpu_torch.preprocessing.preprocessor import \
+        DefaultPreprocessor
+    from fast_nnunet_tpu_torch.run.evaluate import (
+        apply_postprocessing_entry, evaluate_simple_entry)
+    from fast_nnunet_tpu_torch.run.plan_and_preprocess import \
+        plan_and_preprocess_entry
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.run.run_training import run_training_entry
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+    from fast_nnunet_tpu_torch.utils.io import join, load_json
+
+    ds, n = PIPELINE_DS, PIPELINE_N_TRAIN
+    t0 = time.perf_counter()
+    raw = write_raw_ct_dataset(os.environ["nnUNet_raw"])
+    host = {"write_raw_s": time.perf_counter() - t0}
+    print(f"pipeline: raw dataset {ds}: {n} training cases and 1 test case "
+          f"{TRAIN_CASE} int16 at {TRAIN_SPACING} mm, {TRAIN_K} labels, "
+          f"written as .nii.gz in {host['write_raw_s']:.3f} s")
+
+    # ---- fast_nnunet_plan_and_preprocess_torch
+    with host_seconds({
+            "verify": (verify, "verify_dataset_integrity"),
+            "fingerprint": (DatasetFingerprintExtractor, "run"),
+            "plan": (ExperimentPlanner, "plan_experiment"),
+            "preprocess": (DefaultPreprocessor, "run")}) as spent:
+        t0 = time.perf_counter()
+        plan_and_preprocess_entry(["-d", str(PIPELINE_DS_ID), "-c",
+                                   "3d_fullres",
+                                   "--verify_dataset_integrity"])
+        host["plan_and_preprocess_s"] = time.perf_counter() - t0
+    for k, v in spent.items():
+        check(len(v) == 1, f"{k} ran {len(v)} times")
+        host[k + "_s"] = v[0]
+    host["preprocess_s_per_case"] = host["preprocess_s"] / n
+    pre = join(os.environ["nnUNet_preprocessed"], ds)
+    plans = load_json(join(pre, "nnUNetPlans.json"))
+    topo = plan_topology(plans["configurations"]["3d_fullres"])
+    print(f"pipeline: fast_nnunet_plan_and_preprocess_torch "
+          f"{host['plan_and_preprocess_s']:.3f} s: verify "
+          f"{host['verify_s']:.3f}, fingerprint {host['fingerprint_s']:.3f},"
+          f" plan {host['plan_s']:.3f}, preprocess {host['preprocess_s']:.3f}"
+          f" s ({host['preprocess_s_per_case']:.3f} s per case); "
+          f"configurations {sorted(plans['configurations'])}")
+    print("pipeline: planned 3d_fullres " + json.dumps(topo))
+    check(topo == PIPELINE_3D_FULLRES, f"planned 3d_fullres {topo} is not "
+          f"the frozen {PIPELINE_3D_FULLRES}")
+    check("3d_lowres" not in plans["configurations"], "a 3d_lowres was planned")
+    stored = sorted(os.listdir(join(pre, "nnUNetPlans_3d_fullres")))
+    check(len(stored) == 3 * n, f"preprocessed store holds {stored}")
+
+    # ---- fast_nnunet_train_torch DATASET 3d_fullres 0 --npz
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm)
+    torch.cuda.reset_peak_memory_stats()
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run_training_entry([str(PIPELINE_DS_ID), "3d_fullres", "0", "--npz"])
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+    train_wall = time.perf_counter() - t0
+    run_launches = ka.spatial_sum_sumsq.launches
+    peak = torch.cuda.max_memory_allocated()
+    peak_train = cap["peak_bytes"]
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    x1 = torch.zeros((1, 1, *PIPELINE_3D_FULLRES["patch_size"]), device=dev)
+    n_gate, n_gate_remat = gated_norms(torch, trainer.network, x1)
+    predicted = n_gate + n_gate_remat
+    tl = trainer.logger.logging
+    print(f"pipeline: fast_nnunet_train_torch fold 0 ({iters} iterations, 2 "
+          f"validation iterations, final validation with probabilities) "
+          f"{train_wall:.3f} s; remat {trainer._use_remat()!r}; fed seconds "
+          f"per iteration {fed:.4f} (iterations {warm}-{iters - 1}); peak "
+          f"device memory {peak_train / 2**30:.2f} GiB over the training "
+          f"iterations, {peak / 2**30:.2f} GiB over the whole run (final "
+          f"validation included)")
+    print(f"pipeline: kernel A launches per train step "
+          f"{cap['step_launches']} (predicted {predicted}: {n_gate} norms at "
+          f">= 4096 voxels per forward, {n_gate_remat} recomputed by remat);"
+          f" {run_launches} in the whole run; epoch train loss "
+          f"{tl['train_losses'][0]:.4f}, val loss {tl['val_losses'][0]:.4f}")
+    check(all(k == predicted for k in cap["step_launches"]),
+          f"kernel A launches per step {cap['step_launches']} != {predicted}")
+    check(predicted > 0, "the planned teacher launched no kernel A")
+    check(np.isfinite(tl["train_losses"][0]) and
+          np.isfinite(tl["val_losses"][0]),
+          f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
+    a_shapes = sorted(cap["a_calls"])
+    step_launches = cap["step_launches"]
+    kernel_a_step_shapes(torch, "pipeline", cap["a_calls"],
+                         cap["step_launches"][1], a_row)
+    trainer.network = None
+    del trainer, x1
+    cap.clear()
+    torch.cuda.empty_cache()
+
+    # ---- fast_nnunet_find_best_configuration_torch DATASET -c 3d_fullres -f 0
+    t0 = time.perf_counter()
+    find_best_configuration_entry([str(PIPELINE_DS_ID), "-c", "3d_fullres",
+                                   "-f", "0"])
+    host["find_best_s"] = time.perf_counter() - t0
+    results = join(os.environ["nnUNet_results"], ds)
+    ident = "NNUNetTrainer__nnUNetPlans__3d_fullres"
+    cv = join(results, "crossval_results_folds_0", ident)
+    for f in (join(cv, "summary.json"), join(cv, "postprocessing.json"),
+              join(results, "inference_information.json"),
+              join(results, "inference_report.md"),
+              join(results, "inference_report.html")):
+        check(os.path.isfile(f), f"find-best did not write {f}")
+    summary = load_json(join(cv, "summary.json"))
+    dice = [summary["foreground_mean"]["Dice"]] + [
+        m["Dice"] for m in summary["mean"].values()]
+    check(all(isinstance(d, float) and np.isfinite(d) for d in dice),
+          "cross-validation Dice not finite")
+    pp = load_json(join(cv, "postprocessing.json"))
+    print(f"pipeline: find-best {host['find_best_s']:.3f} s; cross-validation"
+          f" foreground Dice {dice[0]:.4f} over {len(dice) - 1} labels; "
+          f"postprocessing {pp['pp_fns']}")
+
+    # ---- fast_nnunet_predict_torch twice, ensemble, postprocess, evaluate
+    model = join(results, ident)
+    outs = []
+    for tta in ([], ["--disable_tta"]):
+        out = join(os.environ["nnUNet_results"], f"imagesTs_pred{len(tta)}")
+        t0 = time.perf_counter()
+        predict_entry_point(["-i", join(raw, "imagesTs"), "-o", out, "-d",
+                             ds, "-c", "3d_fullres", "-f", "0",
+                             "--save_probabilities"] + tta)
+        host["predict_tta_s" if not tta else "predict_s"] = \
+            time.perf_counter() - t0
+        for f in ("plans.json", "dataset.json"):  # what the ensemble reads
+            shutil.copy(join(model, f), join(out, f))
+        outs.append(out)
+    ens = join(os.environ["nnUNet_results"], "imagesTs_ensemble")
+    t0 = time.perf_counter()
+    ensemble_entry(["-i", *outs, "-o", ens])
+    host["ensemble_s"] = time.perf_counter() - t0
+    case = f"case_{n:03d}"
+    probs = [np.load(join(o, case + ".npz"))["probabilities"].astype(
+        np.float32) for o in outs]
+    expected = ((probs[0] + probs[1]) / 2).argmax(0)
+    del probs
+    mask = NiftiIO().read_seg(join(ens, case + ".nii.gz"))[0][0]
+    check(mask.shape == TRAIN_CASE and np.array_equal(mask, expected),
+          "ensembled mask is not the argmax of the mean probabilities")
+    pp_out = join(os.environ["nnUNet_results"], "imagesTs_ensemble_pp")
+    apply_postprocessing_entry([
+        "-i", ens, "-o", pp_out, "-pp_json", join(cv, "postprocessing.json"),
+        "-djfile", join(model, "dataset.json"), "-pfile",
+        join(model, "plans.json")])
+    pp_mask = NiftiIO().read_seg(join(pp_out, case + ".nii.gz"))[0][0]
+    check(np.array_equal(pp_mask, apply_postprocessing(
+        mask, pp["pp_fns"], pp["pp_fn_kwargs"])),
+        "postprocessed file differs from apply_postprocessing in memory")
+    evaluate_simple_entry([join(raw, "labelsTs"), pp_out, "-l",
+                           *map(str, range(1, TRAIN_K))])
+    test_dice = load_json(join(pp_out, "summary.json"))["foreground_mean"][
+        "Dice"]
+    check(np.isfinite(test_dice), f"test Dice {test_dice}")
+    print(f"pipeline: predict imagesTs {host['predict_tta_s']:.3f} s with "
+          f"mirror TTA, {host['predict_s']:.3f} s without; ensemble "
+          f"{host['ensemble_s']:.3f} s, equal to the argmax of the mean "
+          f"probabilities; postprocessed file equals apply_postprocessing; "
+          f"test foreground Dice {test_dice:.4f} (seeded random start, "
+          f"{iters} iterations)")
+    print(json.dumps({"pipeline": {
+        "host_s": host, "fed_s_per_iter": fed,
+        "peak_gib_train": peak_train / 2**30, "peak_gib_run": peak / 2**30,
+        "kernel_a_launches_per_step": step_launches,
+        "kernel_a_predicted_per_step": predicted,
+        "kernel_a_run_launches": run_launches,
+        "kernel_a_shapes": [f"{shape} {dtype}" for shape, dtype in a_shapes],
+        "topology": topo, "cv_fg_dice": dice[0], "test_fg_dice": test_dice}}))
 
 
 def small_train_step(torch, dev):

@@ -12,9 +12,14 @@ hand-written Hopper kernels (``ops.stats``, ``ops.s2d_accumulate``,
 ``ops.finalize``); the plain full-res route — ``models.unet.PlainConvUNet``
 through ``inference.engine.SlidingWindowEngine`` (``predict_logits``, the
 rolling sweep, kernel ``ops.scatter_accumulate``); and the nnU-Net file path,
-``inference.predictor.NNUNetPredictor`` with the ``run.predict`` CLI. Kernel
-sources live in ``csrc/`` and are built by ``ops._build`` at first use.
-Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
+``inference.predictor.NNUNetPredictor`` with the ``run.predict`` CLI;
+training (``training``, ``run.run_training``, ``run.distillation_train``);
+and nnU-Net's host steps around them — ``planning`` (fingerprint, planners),
+``preprocessing``, ``run.plan_and_preprocess``, ``postprocessing``,
+``ensembling``, ``evaluation`` and ``run.evaluate`` (numpy/scipy, no
+device). Kernel sources live in ``csrc/`` and are built by ``ops._build``
+at first use. Every entry point that uses the card runs on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """
 from .device import resolve_device
 

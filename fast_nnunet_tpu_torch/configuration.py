@@ -5,6 +5,8 @@ import os
 # separately (ref configuration.py ANISO_THRESHOLD = 3)
 ANISO_THRESHOLD = 3
 
+default_num_processes = int(os.environ.get("nnUNet_def_n_proc", 8))
+
 
 def get_allowed_n_proc_DA() -> int:
     """Number of host-side data-augmentation workers: the env override

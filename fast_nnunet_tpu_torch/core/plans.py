@@ -127,6 +127,10 @@ class PlansManager:
         return self.plans["dataset_name"]
 
     @property
+    def available_configurations(self) -> List[str]:
+        return list(self.plans["configurations"].keys())
+
+    @property
     def plans_name(self) -> str:
         return self.plans["plans_name"]
 
@@ -139,7 +143,7 @@ class PlansManager:
         return self.plans["transpose_backward"]
 
     def image_reader_writer_class(self):
-        from ..imageio.nifti import find_reader_writer_by_name
+        from ..imageio.registry import find_reader_writer_by_name
         return find_reader_writer_by_name(self.plans["image_reader_writer"])
 
     @property

@@ -352,21 +352,8 @@ class NibabelIOWithReorient(NiftiIOWithReorient):
     pass
 
 
-_NIFTI_RW = {cls.__name__: cls for cls in (
-    NiftiIO, SimpleITKIO, NibabelIO, NiftiIOWithReorient,
-    SimpleITKIOWithReorient, NibabelIOWithReorient)}
-#: the JAX package's other reader/writers (imageio/registry.py)
-_NOT_PORTED_RW = {"NaturalImage2DIO", "NrrdIO", "MhaIO", "Tiff3DIO", "DicomIO"}
-
-
 def find_reader_writer_by_name(name: str):
-    """The plans' ``image_reader_writer`` name -> class. Only the NIfTI
-    reader/writers (and the reference's SimpleITK/nibabel names for them)
-    are ported."""
-    if name in _NIFTI_RW:
-        return _NIFTI_RW[name]
-    if name in _NOT_PORTED_RW:
-        raise NotImplementedError(f"reader/writer {name} is not ported "
-                                  "(the port reads and writes NIfTI only)")
-    raise KeyError(f"Unknown reader/writer '{name}'. Known: "
-                   f"{sorted(_NIFTI_RW)}")
+    """Kept for the earlier import path; see
+    :func:`fast_nnunet_tpu_torch.imageio.registry.find_reader_writer_by_name`."""
+    from .registry import find_reader_writer_by_name as find
+    return find(name)

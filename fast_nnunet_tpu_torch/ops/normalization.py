@@ -83,6 +83,22 @@ class RGBTo01Normalization(ImageNormalization):
         return (image / 255.0).astype(self.target_dtype)
 
 
+channel_name_to_normalization_mapping = {
+    "CT": CTNormalization,
+    "noNorm": NoNormalization,
+    "zscore": ZScoreNormalization,
+    "rescale_to_0_1": RescaleTo01Normalization,
+    "rgb_to_0_1": RGBTo01Normalization,
+}
+
+
+def get_normalization_scheme(channel_name: str) -> Type[ImageNormalization]:
+    """Channel name (dataset.json ``channel_names``) -> scheme class; any
+    other name gets Z-score."""
+    return channel_name_to_normalization_mapping.get(channel_name,
+                                                     ZScoreNormalization)
+
+
 _SCHEMES_BY_NAME = {cls.__name__: cls for cls in (
     ZScoreNormalization, CTNormalization, NoNormalization,
     RescaleTo01Normalization, RGBTo01Normalization)}

@@ -1,11 +1,16 @@
 """Case preprocessing on the host: transpose -> crop-to-nonzero -> normalize
--> resample, the ``run_case`` / ``run_case_npy`` half of
-fast_nnunet_tpu/preprocessing/preprocessor.py ``DefaultPreprocessor``,
-copied (numpy/scipy). Normalization runs BEFORE resampling so the nonzero
-mask still aligns with the image. With a segmentation the foreground
-locations for the patch sampler are collected as there. Preprocessing whole
-datasets for training is not ported."""
+-> resample, fast_nnunet_tpu/preprocessing/preprocessor.py's
+``DefaultPreprocessor`` copied (numpy/scipy). Normalization runs BEFORE
+resampling so the nonzero mask still aligns with the image. With a
+segmentation the foreground locations for the patch sampler are collected
+as there. ``run`` preprocesses a whole raw dataset into the ``.npy`` case
+store (``training/dataset.NpyCaseDataset``), in a spawned process pool when
+``num_processes`` > 1; the ``.fnnz`` store is not ported (ROADMAP.md §1
+item 3)."""
 import math
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor, as_completed
 from typing import List, Optional, Union
 
 import numpy as np
@@ -14,7 +19,9 @@ from ..core.plans import ConfigurationManager, PlansManager
 from ..ops.cropping import crop_to_nonzero
 from ..ops.normalization import get_normalization_scheme_by_class_name
 from ..ops.resampling import compute_new_shape
-from ..utils.io import load_json
+from ..training.dataset import NpyCaseDataset
+from ..utils.dataset_io import get_filenames_of_train_images_and_targets
+from ..utils.io import join, load_json, maybe_mkdir_p
 
 
 class DefaultPreprocessor:
@@ -70,6 +77,8 @@ class DefaultPreprocessor:
             properties["class_locations"] = \
                 self._sample_foreground_locations(seg, collect,
                                                   verbose=self.verbose)
+            seg = self.modify_seg_fn(seg, plans_manager, dataset_json,
+                                     configuration_manager)
         seg = seg.astype(np.int16 if np.max(seg) > 127 else np.int8)
         return data, seg, properties
 
@@ -84,6 +93,19 @@ class DefaultPreprocessor:
         seg = rw.read_seg(seg_file)[0] if seg_file is not None else None
         return self.run_case_npy(data, seg, data_properties, plans_manager,
                                  configuration_manager, dataset_json)
+
+    def run_case_save(self, output_filename_truncated: str,
+                      image_files: List[str], seg_file: Optional[str],
+                      plans_manager: PlansManager,
+                      configuration_manager: ConfigurationManager,
+                      dataset_json: Union[dict, str],
+                      storage: str = "npy") -> None:
+        _check_storage(storage)
+        data, seg, properties = self.run_case(
+            image_files, seg_file, plans_manager, configuration_manager,
+            dataset_json)
+        NpyCaseDataset.save_case(data, seg, properties,
+                                 output_filename_truncated)
 
     @staticmethod
     def _sample_foreground_locations(seg: np.ndarray, classes_or_regions,
@@ -140,3 +162,69 @@ class DefaultPreprocessor:
             data[c] = normalizer.run(data[c], seg[0] if seg is not None
                                      else None)
         return data
+
+    def modify_seg_fn(self, seg: np.ndarray, plans_manager: PlansManager,
+                      dataset_json: dict,
+                      configuration_manager: ConfigurationManager
+                      ) -> np.ndarray:
+        """Extension hook for subclasses; the default keeps the seg."""
+        return seg
+
+    def run(self, dataset_name_or_id, configuration_name: str,
+            plans_identifier: str = "nnUNetPlans", num_processes: int = 8,
+            storage: Optional[str] = None) -> None:
+        """Preprocess a whole raw dataset into
+        ``nnUNet_preprocessed/<dataset>/<data_identifier>``. ``storage``
+        None reads ``FNNT_STORE`` (default ``npy``)."""
+        from ..paths import get_preprocessed_folder, get_raw_folder
+        from ..utils.misc import maybe_convert_to_dataset_name
+
+        dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
+        preprocessed = join(get_preprocessed_folder(), dataset_name)
+        plans_manager = PlansManager(join(preprocessed,
+                                          plans_identifier + ".json"))
+        configuration_manager = plans_manager.get_configuration(
+            configuration_name)
+        raw = join(get_raw_folder(), dataset_name)
+        dataset_json = load_json(join(raw, "dataset.json"))
+        dataset = get_filenames_of_train_images_and_targets(raw,
+                                                            dataset_json)
+        if storage is None:
+            storage = os.environ.get("FNNT_STORE", "npy")
+        _check_storage(storage)
+        out_folder = join(preprocessed, configuration_manager.data_identifier)
+        maybe_mkdir_p(out_folder)
+
+        jobs = [(join(out_folder, ident), d["images"], d["label"])
+                for ident, d in dataset.items()]
+        if num_processes <= 1:
+            for out_trunc, images, label in jobs:
+                self.run_case_save(out_trunc, images, label, plans_manager,
+                                   configuration_manager, dataset_json,
+                                   storage=storage)
+            return
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=num_processes,
+                                 mp_context=ctx) as ex:
+            futures = [ex.submit(_run_case_save_worker, type(self), out_trunc,
+                                 images, label, plans_manager.plans,
+                                 configuration_name, dataset_json, storage)
+                       for out_trunc, images, label in jobs]
+            for fut in as_completed(futures):
+                fut.result()  # re-raise a worker's error here
+
+
+def _check_storage(storage: str) -> None:
+    if storage == "fnnz":
+        raise NotImplementedError(
+            "the .fnnz (chunked zstd) case store is not ported; use the "
+            ".npy store (ROADMAP.md §1 item 3)")
+    assert storage == "npy", f"unknown storage {storage!r}"
+
+
+def _run_case_save_worker(preproc_cls, out_trunc, images, label, plans_dict,
+                          configuration_name, dataset_json, storage="npy"):
+    pm = PlansManager(plans_dict)
+    cm = pm.get_configuration(configuration_name)
+    preproc_cls().run_case_save(out_trunc, images, label, pm, cm,
+                                dataset_json, storage=storage)

@@ -83,3 +83,34 @@ def subdirs(folder: str, prefix: Optional[str] = None,
             suffix: Optional[str] = None, sort: bool = True,
             join_path: bool = False) -> List[str]:
     return _entries(folder, os.path.isdir, prefix, suffix, sort, join_path)
+
+
+def recursive_fix_for_json_export(d: dict) -> None:
+    """In-place conversion of numpy scalars/arrays (and tuples) to
+    JSON-safe types."""
+    for k in list(d.keys()):
+        if isinstance(k, np.integer):
+            d[int(k)] = d.pop(k)
+            k = int(k)
+        v = d[k]
+        if isinstance(v, dict):
+            recursive_fix_for_json_export(v)
+        else:
+            d[k] = _fix_seq_item(v)
+
+
+def _fix_seq_item(v):
+    if isinstance(v, dict):
+        recursive_fix_for_json_export(v)
+        return v
+    if isinstance(v, np.ndarray):
+        return v.tolist()
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, (list, tuple)):
+        return [_fix_seq_item(i) for i in v]
+    return v
