@@ -78,7 +78,7 @@ the card. Run from the repository root:
    integrity check, the fingerprint, the plan and preprocessing per case),
    whose 3d_fullres must equal PIPELINE_3D_FULLRES (the planner's
    anisotropic 6-stage teacher: (1, 3, 3) first kernels, (1, 2, 2) and
-   (2, 1, 1) strides); ``fast_nnunet_train_torch 988 3d_fullres 0 --npz``
+   (2, 1, 1) strides); ``fast_nnunet_train_torch 988 3d_fullres 0``
    with the trainer's defaults, cut to one epoch of 10 iterations and 2
    validation iterations: fed seconds per iteration, peak memory, kernel A
    launches per step against the gate's count, every (shape, dtype) A
@@ -91,6 +91,25 @@ the card. Run from the repository root:
    recomputed with numpy); ``fast_nnunet_apply_postprocessing_torch`` (must
    equal ``apply_postprocessing`` in memory); ``fast_nnunet_evaluate_simple
    _torch`` against the test label. One ``{"pipeline": ...}`` JSON line.
+12. nnU-Net's residual-encoder presets (``resenc:``), in phase 11's dataset
+   before it is removed: ``fast_nnunet_plan_and_preprocess_torch -d 988
+   -pl nnUNetPlannerResEncL -c 3d_fullres`` (the fingerprint reused), whose
+   3d_fullres must equal PIPELINE_RESENC_L (patch 160^3, batch 2, blocks
+   1/3/4/6/6/6, single-conv decoder stages); ``fast_nnunet_train_torch 988
+   3d_fullres 0 -p nnUNetResEncUNetLPlans`` (one epoch of 10 iterations, 2
+   validation iterations, the final validation): fed seconds per
+   iteration, FLOPs and mfu, peak memory, kernel A launches per step
+   against the gate's count over the residual blocks (recomputed under
+   remat, the stem not), every (shape, dtype) A takes in one step checked
+   and timed into A's ``train_shapes``; 4 seeded random ResEnc L folds
+   beside the trained fold 0 and ``fast_nnunet_resenc_distill_torch -tpl
+   nnUNetResEncUNetLPlans -spl nnUNetResEncUNetLPlans`` (the
+   LiteResEncStudent, 6 iterations, 5 teachers): seconds per iteration,
+   launches per step against the count, A's shapes of one step;
+   ``fast_nnunet_predict_torch`` on imagesTs with the teacher and with the
+   student; a small ResEnc and a small BatchNorm (``NNUNetTrainerBN``'s
+   network) train step cuda vs cpu as in 10; and ``--use_da5``
+   distillation at small size on the card. One ``{"resenc": ...}`` line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -154,13 +173,33 @@ PIPELINE_3D_FULLRES = {
 }
 
 
-def plan_topology(configuration: dict) -> dict:
-    """The keys of PIPELINE_3D_FULLRES from a plans configuration."""
+# phase 12: nnU-Net's ResEnc L preset on phase 11's dataset, frozen like
+# PIPELINE_3D_FULLRES (tests/test_torch_planning.py holds it against the JAX
+# planner), and its LiteResEncStudent (r = 2, "reduce")
+RESENC_PLANS = "nnUNetResEncUNetLPlans"
+RESENC_KEYS = ("n_blocks_per_stage", "n_conv_per_stage_decoder")
+PIPELINE_RESENC_L = {
+    "patch_size": [160, 160, 160], "batch_size": 2,
+    "spacing": [2.0, 0.9765625, 0.9765625],
+    "normalization_schemes": ["CTNormalization"], "n_stages": 6,
+    "features_per_stage": [32, 64, 128, 256, 320, 320],
+    "kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 5,
+    "strides": [[1, 1, 1], [1, 2, 2], [2, 2, 2], [2, 2, 2], [2, 2, 2],
+                [2, 2, 2]],
+    "n_blocks_per_stage": [1, 3, 4, 6, 6, 6],
+    "n_conv_per_stage_decoder": [1, 1, 1, 1, 1],
+}
+
+
+def plan_topology(configuration: dict, extra=()) -> dict:
+    """The keys of PIPELINE_3D_FULLRES (and the architecture keys
+    ``extra``) from a plans configuration."""
     arch = configuration["architecture"]["arch_kwargs"]
     out = {k: configuration[k] for k in ("patch_size", "batch_size",
                                          "spacing", "normalization_schemes")}
     out.update({k: json.loads(json.dumps(arch[k])) for k in (
-        "n_stages", "features_per_stage", "kernel_sizes", "strides")})
+        "n_stages", "features_per_stage", "kernel_sizes", "strides",
+        *extra)})
     return out
 
 
@@ -169,6 +208,9 @@ SMALL_ARCH = {
     "kernel_sizes": [[3, 3, 3]] * 3, "strides": [[1, 1, 1]] + [[2, 2, 2]] * 2,
     "n_conv_per_stage": [2, 2, 2], "n_conv_per_stage_decoder": [2, 2],
 }
+SMALL_RESENC = dict(SMALL_ARCH, kernel_sizes=[[1, 3, 3]] + [[3, 3, 3]] * 2,
+                    n_blocks_per_stage=[1, 2, 2],
+                    n_conv_per_stage_decoder=[1, 1])
 
 
 class SmokeFailure(Exception):
@@ -273,6 +315,17 @@ def main() -> int:
     from fast_nnunet_tpu_torch.ops import stats as ka
     from fast_nnunet_tpu_torch.utils.synthetic_ct import make_synthetic_ct
 
+    t_start = time.perf_counter()
+    last = [t_start]
+
+    def mark(phase):
+        """The command's wall clock after each phase (the run's time
+        budget is the driver's limit)."""
+        now = time.perf_counter()
+        print(f"wall: {phase} done at {now - t_start:.1f} s "
+              f"({now - last[0]:.1f} s)")
+        last[0] = now
+
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
     _build.library()
@@ -358,16 +411,19 @@ def main() -> int:
     rows = kernel_checks(torch, cap, engine, launches, kb, kc)
     del cap, engine, pipe, net
     torch.cuda.empty_cache()
+    mark("build, s2d main path and its kernels (phases 1-3)")
 
     # ------------------------------------------- plain full-res path, kernel D
     cap_d, launches_d = plain_main_path(torch, dev, engine_module, K, arch)
     rows.append(kernel_d_check(torch, cap_d, launches_d))
     del cap_d
     torch.cuda.empty_cache()
+    mark("plain path and kernel D (phases 4-5)")
 
     # ------------------------------------------- training and distillation
     training_paths(torch, dev, next(r for r in rows
                                     if r["name"] == "spatial_sum_sumsq"))
+    mark("training and distillation (phases 7-9)")
 
     # ------------------------------------------- small model: cuda vs cpu
     small_train_step(torch, dev)
@@ -402,10 +458,12 @@ def main() -> int:
     golden_predictor(torch)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
+    mark("small checks (phases 6, 10)")
 
     # ------------------------------------------- raw dataset -> evaluation
     pipeline_path(torch, dev, next(r for r in rows
                                    if r["name"] == "spatial_sum_sumsq"))
+    mark("raw dataset workflow and ResEnc presets (phases 11-12)")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -841,10 +899,13 @@ def golden_predictor(torch):
 
 
 # ------------------------------------------------------------------ training
-def write_train_dataset(root, n_cases=4, seed=0):
+def write_train_dataset(root, n_cases=4, seed=0, ds=TRAIN_DS,
+                        shape=TRAIN_CASE, k=TRAIN_K, arch=TRAIN_ARCH,
+                        patch=TRAIN_PATCH, plans_name="nnUNetPlans"):
     """bench_train's synthetic preprocessed cases (one cuboid per class,
     data correlated with the label), with the properties the final
-    validation's export needs, and their labels as nnUNet_raw NIfTIs."""
+    validation's export needs, and their labels as nnUNet_raw NIfTIs; the
+    keyword arguments make a smaller dataset under other plans."""
     import numpy as np
     from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
     from fast_nnunet_tpu_torch.preprocessing.preprocessor import \
@@ -852,17 +913,16 @@ def write_train_dataset(root, n_cases=4, seed=0):
     from fast_nnunet_tpu_torch.training.dataset import NpyCaseDataset
     from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p, save_json
 
-    pre = os.path.join(root, "preprocessed", TRAIN_DS)
-    folder = os.path.join(pre, "nnUNetPlans_3d_fullres")
-    labels = os.path.join(root, "raw", TRAIN_DS, "labelsTr")
+    pre = os.path.join(root, "preprocessed", ds)
+    folder = os.path.join(pre, plans_name + "_3d_fullres")
+    labels = os.path.join(root, "raw", ds, "labelsTr")
     for d in (folder, labels, os.path.join(root, "results")):
         maybe_mkdir_p(d)
     rng = np.random.RandomState(seed)
-    shape = TRAIN_CASE
     for i in range(n_cases):
         data = rng.randn(1, *shape).astype(np.float32)
         seg = np.zeros((1, *shape), np.int8)
-        for c in range(1, TRAIN_K):
+        for c in range(1, k):
             sz = rng.randint(6, 16, size=3)
             lo = [rng.randint(0, shape[d] - sz[d]) for d in range(3)]
             sl = (0,) + tuple(slice(lo[d], lo[d] + sz[d]) for d in range(3))
@@ -870,7 +930,7 @@ def write_train_dataset(root, n_cases=4, seed=0):
             data[sl] += 0.05 * c
         props = {
             "class_locations": DefaultPreprocessor._sample_foreground_locations(
-                seg, list(range(1, TRAIN_K))),
+                seg, list(range(1, k))),
             "spacing": TRAIN_SPACING, "shape_before_cropping": shape,
             "bbox_used_for_cropping": [[0, s] for s in shape],
             "shape_after_cropping_and_before_resampling": shape}
@@ -880,13 +940,13 @@ def write_train_dataset(root, n_cases=4, seed=0):
                             {"spacing": TRAIN_SPACING})
     rs = "resample_data_or_seg_to_shape"
     plans = {
-        "dataset_name": TRAIN_DS, "plans_name": "nnUNetPlans",
+        "dataset_name": ds, "plans_name": plans_name,
         "image_reader_writer": "NiftiIO",
         "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
         "foreground_intensity_properties_per_channel": {},
         "configurations": {"3d_fullres": {
-            "data_identifier": "nnUNetPlans_3d_fullres", "batch_size": 2,
-            "patch_size": TRAIN_PATCH, "spacing": TRAIN_SPACING,
+            "data_identifier": plans_name + "_3d_fullres", "batch_size": 2,
+            "patch_size": list(patch), "spacing": TRAIN_SPACING,
             "normalization_schemes": ["CTNormalization"],
             "use_mask_for_norm": [False],
             "resampling_fn_data": rs,
@@ -896,13 +956,13 @@ def write_train_dataset(root, n_cases=4, seed=0):
             "resampling_fn_probabilities": rs,
             "resampling_fn_probabilities_kwargs": {"is_seg": False,
                                                    "order": 1},
-            "architecture": TRAIN_ARCH, "batch_dice": False}}}
+            "architecture": arch, "batch_dice": False}}}
     dataset_json = {
-        "name": TRAIN_DS, "numTraining": n_cases, "file_ending": ".nii.gz",
+        "name": ds, "numTraining": n_cases, "file_ending": ".nii.gz",
         "channel_names": {"0": "CT"},
         "labels": {"background": 0,
-                   **{f"struct_{c}": c for c in range(1, TRAIN_K)}}}
-    save_json(plans, os.path.join(pre, "nnUNetPlans.json"))
+                   **{f"struct_{c}": c for c in range(1, k)}}}
+    save_json(plans, os.path.join(pre, plans_name + ".json"))
     save_json(dataset_json, os.path.join(pre, "dataset.json"))
     return plans
 
@@ -966,9 +1026,8 @@ def conv_flops(torch, net, x):
     of one forward of ``net`` on ``x``: 2 k^3 Cin Cout per output voxel of a
     convolution, per input voxel of a transposed convolution."""
     from torch import nn
-    from fast_nnunet_tpu_torch.models.blocks import StackedConvBlocks
-    remat_convs = {id(m) for st in net.modules()
-                   if isinstance(st, StackedConvBlocks) and st.remat
+    from fast_nnunet_tpu_torch.models.unet import remat_modules
+    remat_convs = {id(m) for st in remat_modules(net)
                    for m in st.modules() if isinstance(m, nn.Conv3d)}
     tot = {"all": 0, "remat": 0}
 
@@ -992,15 +1051,25 @@ def conv_flops(torch, net, x):
     return tot["all"], tot["remat"]
 
 
+def stage_features(net):
+    """Output channels of each encoder stage, plain or residual."""
+    enc = net.encoder
+    if hasattr(enc, "stages"):
+        return [st.blocks["block_0"].conv.out_channels
+                for st in enc.stages.values()]
+    return [enc.blocks[f"stage_{s}_block_0"].conv1.out_channels
+            for s in range(len(enc.stage_ends))]
+
+
 def gated_norms(torch, net, x):
     """(norms at >= the kernel A gate in one forward, of those inside
-    checkpointed stacks): the kernel A launches one training step should
-    make are their sum."""
-    from fast_nnunet_tpu_torch.models.blocks import (InstanceNorm,
-                                                     StackedConvBlocks)
+    modules a training step recomputes: checkpointed stacks, residual
+    blocks): the kernel A launches one training step should make are their
+    sum."""
+    from fast_nnunet_tpu_torch.models.blocks import InstanceNorm
     from fast_nnunet_tpu_torch.models.s2d import STATS_MIN_VOXELS
-    remat_norms = {id(m) for st in net.modules()
-                   if isinstance(st, StackedConvBlocks) and st.remat
+    from fast_nnunet_tpu_torch.models.unet import remat_modules
+    remat_norms = {id(m) for st in remat_modules(net)
                    for m in st.modules() if isinstance(m, InstanceNorm)}
     n = {"all": 0, "remat": 0}
 
@@ -1298,13 +1367,23 @@ def kernel_a_train_check(torch, x, launches_per_step, a_row):
 def kernel_a_step_shapes(torch, path, calls, step_launches, a_row):
     """Every distinct (shape, dtype) kernel A was launched with in one step
     of ``path`` (``calls`` from :func:`kernel_a_calls`), checked and timed
-    by :func:`kernel_a_at`; appended to A's row's ``train_shapes``."""
+    by :func:`kernel_a_at` unless an earlier path of this run did so
+    (``checked_on`` names it); appended to A's row's ``train_shapes``."""
     n = sum(v[0] for v in calls.values())
     check(n == step_launches, f"{path}: {n} kernel A calls recorded in one "
           f"step, {step_launches} launches counted")
     out = a_row.setdefault("train_shapes", [])
     for (shape, dtype), (count, x) in sorted(calls.items(),
                                              key=lambda kv: -kv[1][1].numel()):
+        seen = next((r for r in out if r["shape"] == f"x {shape} {dtype}"),
+                    None)
+        if seen is not None:   # checked and timed earlier in this run
+            out.append(dict(seen, path=path, launches_per_step=count,
+                            checked_on=seen.get("checked_on", seen["path"])))
+            print(f"kernel spatial_sum_sumsq ({path}, {count} per step): "
+                  f"x {shape} {dtype}, checked and timed on the "
+                  f"{out[-1]['checked_on']} path above")
+            continue
         a = kernel_a_at(torch, x, count)
         out.append(dict(a, path=path, launches_per_step=count))
         print(f"kernel spatial_sum_sumsq ({path}, {count} per step): "
@@ -1364,8 +1443,7 @@ def distill_main_path(torch, dev, root, plans, a_row, iters=8, warm=2):
     per_iter = (st[-1] - st[warm]) / (iters - warm)
     lg = trainer.logger.logging
     seg, dist = lg["train_seg_losses"][0], lg["train_distill_losses"][0]
-    feats = [st.blocks["block_0"].conv.out_channels
-             for st in trainer.network.encoder.stages.values()]
+    feats = stage_features(trainer.network)
     print(f"distill: student features {feats}, {len(trainer.teachers)} teacher "
           f"folds {trainer.teacher_fold}, alpha {trainer.alpha}, T "
           f"{trainer.temperature}; run_distillation_training ({iters} "
@@ -1438,6 +1516,7 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
     os.environ.update(env)
     try:
         _pipeline(torch, dev, a_row, root, iters, warm)
+        resenc_path(torch, dev, a_row)
     finally:
         for k, v in old.items():
             if v is None:
@@ -1512,7 +1591,7 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
     stored = sorted(os.listdir(join(pre, "nnUNetPlans_3d_fullres")))
     check(len(stored) == 3 * n, f"preprocessed store holds {stored}")
 
-    # ---- fast_nnunet_train_torch DATASET 3d_fullres 0 --npz
+    # ---- fast_nnunet_train_torch DATASET 3d_fullres 0
     os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
                       FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
     cap = {}
@@ -1521,7 +1600,7 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
     ka.spatial_sum_sumsq.launches = 0
     t0 = time.perf_counter()
     try:
-        run_training_entry([str(PIPELINE_DS_ID), "3d_fullres", "0", "--npz"])
+        run_training_entry([str(PIPELINE_DS_ID), "3d_fullres", "0"])
     finally:
         NNUNetTrainer.run_train_iterations = orig
     train_wall = time.perf_counter() - t0
@@ -1536,7 +1615,7 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
     predicted = n_gate + n_gate_remat
     tl = trainer.logger.logging
     print(f"pipeline: fast_nnunet_train_torch fold 0 ({iters} iterations, 2 "
-          f"validation iterations, final validation with probabilities) "
+          f"validation iterations, final validation) "
           f"{train_wall:.3f} s; remat {trainer._use_remat()!r}; fed seconds "
           f"per iteration {fed:.4f} (iterations {warm}-{iters - 1}); peak "
           f"device memory {peak_train / 2**30:.2f} GiB over the training "
@@ -1641,14 +1720,305 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
         "topology": topo, "cv_fg_dice": dice[0], "test_fg_dice": test_dice}}))
 
 
-def small_train_step(torch, dev):
-    """Three SGD steps of a narrow training network, fp32 with TF32 off and
-    deterministic cuDNN, cuda (kernel A) vs cpu (plain version): losses
-    within 1e-4 relative, parameters within 1e-5 absolute."""
+# ------------------------------------------------------------------ resenc
+def resenc_path(torch, dev, a_row, iters=10, warm=3, d_iters=6, d_warm=2):
+    """Phase 12 (``resenc:``): nnU-Net's ResEnc L workflow on phase 11's
+    dataset through the port's entry points, in process (docstring step
+    12)."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.models.factory import \
+        build_network_from_arch_dict
+    from fast_nnunet_tpu_torch.models.unet import (init_he_normal_,
+                                                   params_to_jax)
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.planning.planner import ExperimentPlanner
+    from fast_nnunet_tpu_torch.preprocessing.preprocessor import \
+        DefaultPreprocessor
+    from fast_nnunet_tpu_torch.run.distillation_train import \
+        resenc_distillation_train_entry
+    from fast_nnunet_tpu_torch.run.plan_and_preprocess import \
+        plan_and_preprocess_entry
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.run.run_training import run_training_entry
+    from fast_nnunet_tpu_torch.training.checkpoint import save_checkpoint
+    from fast_nnunet_tpu_torch.training.distill import \
+        NNUNetDistillationTrainer
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+    from fast_nnunet_tpu_torch.utils.io import join, load_json, maybe_mkdir_p
+
+    t_phase = time.perf_counter()
+    ds, plans_id, n = PIPELINE_DS, RESENC_PLANS, PIPELINE_N_TRAIN
+    ident = str(PIPELINE_DS_ID)
+    # ---- fast_nnunet_plan_and_preprocess_torch -pl nnUNetPlannerResEncL
+    with host_seconds({"plan": (ExperimentPlanner, "plan_experiment"),
+                       "preprocess": (DefaultPreprocessor, "run")}) as spent:
+        t0 = time.perf_counter()
+        plan_and_preprocess_entry(["-d", ident, "-pl", "nnUNetPlannerResEncL",
+                                   "-c", "3d_fullres"])
+        host = {"plan_and_preprocess_s": time.perf_counter() - t0}
+    for k, v in spent.items():
+        check(len(v) == 1, f"{k} ran {len(v)} times")
+        host[k + "_s"] = v[0]
+    pre = join(os.environ["nnUNet_preprocessed"], ds)
+    plans = load_json(join(pre, plans_id + ".json"))
+    topo = plan_topology(plans["configurations"]["3d_fullres"], RESENC_KEYS)
+    print(f"resenc: fast_nnunet_plan_and_preprocess_torch -pl "
+          f"nnUNetPlannerResEncL {host['plan_and_preprocess_s']:.3f} s "
+          f"(fingerprint of phase 11 reused): plan {host['plan_s']:.3f}, "
+          f"preprocess {host['preprocess_s']:.3f} s")
+    print("resenc: planned 3d_fullres " + json.dumps(topo))
+    check(topo == PIPELINE_RESENC_L, f"planned ResEnc L {topo} is not the "
+          f"frozen {PIPELINE_RESENC_L}")
+    stored = os.listdir(join(pre, plans_id + "_3d_fullres"))
+    check(len(stored) == 3 * n, f"preprocessed store holds {stored}")
+
+    # ---- fast_nnunet_train_torch 988 3d_fullres 0 -p nnUNetResEncUNetLPlans
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm)
+    torch.cuda.reset_peak_memory_stats()
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run_training_entry([ident, "3d_fullres", "0", "-p", plans_id])
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+    train_wall = time.perf_counter() - t0
+    run_launches = ka.spatial_sum_sumsq.launches
+    peak, peak_train = torch.cuda.max_memory_allocated(), cap["peak_bytes"]
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    x1 = torch.zeros((1, 1, *topo["patch_size"]), device=dev)
+    n_gate, n_remat = gated_norms(torch, trainer.network, x1)
+    f_fwd, f_remat = conv_flops(torch, trainer.network, x1)
+    flops = topo["batch_size"] * (3 * f_fwd + f_remat)   # hooks: batch 1
+    predicted = n_gate + n_remat
+    tl = trainer.logger.logging
+    print(f"resenc: teacher ResidualEncoderUNet features "
+          f"{stage_features(trainer.network)}, blocks "
+          f"{topo['n_blocks_per_stage']}, {TRAIN_K} classes, patch "
+          f"{topo['patch_size']}, batch {topo['batch_size']}, remat "
+          f"{trainer._use_remat()!r}; fast_nnunet_train_torch fold 0 ({iters}"
+          f" iterations, 2 validation iterations, final validation) "
+          f"{train_wall:.3f} s; fed seconds per iteration {fed:.4f} "
+          f"(iterations {warm}-{iters - 1}); FLOPs per step {flops:.4e}, mfu"
+          f" fed {flops / fed / BF16_TENSOR_OPS_PER_S:.4f}; peak device "
+          f"memory {peak_train / 2**30:.2f} GiB over the training "
+          f"iterations, {peak / 2**30:.2f} GiB over the whole run")
+    print(f"resenc: kernel A launches per train step {cap['step_launches']} "
+          f"(predicted {predicted}: {n_gate} norms at >= 4096 voxels per "
+          f"forward, {n_remat} recomputed by remat); {run_launches} in the "
+          f"whole run; epoch train loss {tl['train_losses'][0]:.4f}, val "
+          f"loss {tl['val_losses'][0]:.4f}")
+    check(all(k == predicted for k in cap["step_launches"]),
+          f"kernel A launches per step {cap['step_launches']} != {predicted}")
+    check(np.isfinite(tl["train_losses"][0]) and
+          np.isfinite(tl["val_losses"][0]),
+          f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
+    a_shapes = sorted(cap["a_calls"])
+    out = {"host_s": host, "topology": topo, "fed_s_per_iter": fed,
+           "flops_per_step": flops, "peak_gib_train": peak_train / 2**30,
+           "peak_gib_run": peak / 2**30,
+           "kernel_a_launches_per_step": cap["step_launches"],
+           "kernel_a_predicted_per_step": predicted,
+           "kernel_a_shapes": [f"{sh} {dt}" for sh, dt in a_shapes],
+           "train_loss": tl["train_losses"][0]}
+    step_launches = cap["step_launches"][1]
+    calls = cap["a_calls"]
+    arch = plans["configurations"]["3d_fullres"]["architecture"]
+    trainer.network = None
+    del trainer, x1
+    cap.clear()
+    torch.cuda.empty_cache()
+    kernel_a_step_shapes(torch, "resenc", calls, step_launches, a_row)
+
+    # ---- 4 seeded random ResEnc L folds beside the trained fold 0
+    t0 = time.perf_counter()
+    results = join(os.environ["nnUNet_results"], ds)
+    model = join(results, f"NNUNetTrainer__{plans_id}__3d_fullres")
+    net = build_network_from_arch_dict(arch, 1, TRAIN_K, trainable=True)
+    for f in range(1, 5):
+        maybe_mkdir_p(join(model, f"fold_{f}"))
+        save_checkpoint(join(model, f"fold_{f}", "checkpoint_final.fnnx"),
+                        network_weights=params_to_jax(
+                            init_he_normal_(net, 100 + f)),
+                        init_args={"fold": f, "configuration": "3d_fullres"})
+    del net
+    print(f"resenc: 4 teacher folds of seeded random ResEnc L weights "
+          f"written in {time.perf_counter() - t0:.3f} s")
+
+    # ---- fast_nnunet_resenc_distill_torch -tpl L -spl L (5 teachers)
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(d_iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetDistillationTrainer, "distill_step", cap,
+                            d_warm)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        resenc_distillation_train_entry(["-d", ident, "-tpl", plans_id,
+                                         "-spl", plans_id])
+    finally:
+        NNUNetDistillationTrainer.run_train_iterations = orig
+    d_wall = time.perf_counter() - t0
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    d_iter = (st[-1] - st[d_warm]) / (d_iters - d_warm)
+    lg = trainer.logger.logging
+    seg, dist = lg["train_seg_losses"][0], lg["train_distill_losses"][0]
+    x1 = torch.zeros((1, 1, *topo["patch_size"]), device=dev)
+    s_gate, s_remat = gated_norms(torch, trainer.network, x1)
+    t_gate, _ = gated_norms(torch, trainer.teachers[0], x1)
+    d_predicted = s_gate + s_remat + len(trainer.teachers) * t_gate
+    print(f"resenc: LiteResEncStudent features "
+          f"{stage_features(trainer.network)}, "
+          f"{len(trainer.teachers)} teacher folds {trainer.teacher_fold}; "
+          f"fast_nnunet_resenc_distill_torch ({d_iters} iterations, 1 "
+          f"validation iteration, final validation) {d_wall:.3f} s; warm "
+          f"seconds per iteration {d_iter:.4f}; peak device memory "
+          f"{cap['peak_bytes'] / 2**30:.2f} GiB over the iterations; seg "
+          f"loss {seg:.4f}, distill loss {dist:.4f}")
+    print(f"resenc: kernel A launches per distillation step "
+          f"{cap['step_launches']} (predicted {d_predicted}: student "
+          f"{s_gate} + {s_remat} recomputed, {len(trainer.teachers)} "
+          f"teachers x {t_gate})")
+    check(len(trainer.teachers) == 5, "not 5 teacher folds")
+    check(np.isfinite(seg) and np.isfinite(dist) and dist > 0,
+          f"distillation losses seg {seg} distill {dist}")
+    check(all(k == d_predicted for k in cap["step_launches"]),
+          f"kernel A launches per distillation step {cap['step_launches']}"
+          f" != {d_predicted}")
+    out.update(distill_s_per_iter=d_iter, distill_seg_loss=seg,
+               distill_loss=dist,
+               distill_peak_gib=cap["peak_bytes"] / 2**30,
+               distill_launches_per_step=cap["step_launches"],
+               distill_predicted_per_step=d_predicted)
+    calls, step_launches = cap["a_calls"], cap["step_launches"][1]
+    trainer.teachers, trainer.network = [], None
+    del trainer, x1
+    cap.clear()
+    torch.cuda.empty_cache()
+    kernel_a_step_shapes(torch, "resenc_distill", calls, step_launches, a_row)
+
+    # ---- fast_nnunet_predict_torch on imagesTs with the teacher and student
+    raw = join(os.environ["nnUNet_raw"], ds)
+    case = f"case_{n:03d}"
+    for who, trainer_name in (("teacher", "NNUNetTrainer"),
+                              ("student", "NNUNetDistillationTrainer")):
+        o = join(os.environ["nnUNet_results"], f"imagesTs_resenc_{who}")
+        t0 = time.perf_counter()
+        predict_entry_point(["-i", join(raw, "imagesTs"), "-o", o, "-d", ds,
+                             "-p", plans_id, "-tr", trainer_name, "-c",
+                             "3d_fullres", "-f", "0", "--disable_tta"])
+        host[f"predict_{who}_s"] = time.perf_counter() - t0
+        mask = NiftiIO().read_seg(join(o, case + ".nii.gz"))[0][0]
+        labels = np.unique(mask)
+        check(mask.shape == TRAIN_CASE and labels.max() < TRAIN_K,
+              f"{who} mask {mask.shape} labels {labels[:8]}")
+        print(f"resenc: fast_nnunet_predict_torch with the {who} "
+              f"{host[f'predict_{who}_s']:.3f} s: mask {mask.shape}, "
+              f"{len(labels)} labels")
+
+    # ---- small: ResEnc and BatchNorm steps cuda vs cpu; DA5 distillation
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["small_resenc"] = small_train_step(
+            torch, dev, "ResidualEncoderUNet", SMALL_RESENC,
+            "ResEnc train step")
+        out["small_bn"] = small_train_step(
+            torch, dev, "PlainConvUNet",
+            dict(SMALL_ARCH, norm_op="torch.nn.BatchNorm3d"),
+            "NNUNetTrainerBN train step", kernel_a=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["small_da5"] = small_da5_distill(torch)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"resenc: phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"resenc": out}))
+
+
+def small_da5_distill(torch, iters=4):
+    """``fast_nnunet_resenc_distill_torch --use_da5`` at small size on the
+    card: 4 synthetic cases (1, 40, 48, 48), a 3-stage ResEnc (patch 32^3,
+    4 classes), 2 seeded random teacher folds, ``iters`` iterations under
+    the DA5 augmentation."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.unet import (init_he_normal_,
+                                                   params_to_jax)
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.run.distillation_train import \
+        resenc_distillation_train_entry
+    from fast_nnunet_tpu_torch.training.checkpoint import load_checkpoint
+    from fast_nnunet_tpu_torch.training.checkpoint import save_checkpoint
+    from fast_nnunet_tpu_torch.utils.io import join, maybe_mkdir_p, save_json
+
+    ds, plans_id, k = "Dataset989_SmallResEnc", RESENC_PLANS, 4
+    arch = {"network_class_name": "dynamic_network_architectures."
+                                  "architectures.unet.ResidualEncoderUNet",
+            "arch_kwargs": dict(SMALL_RESENC,
+                                conv_op="torch.nn.modules.conv.Conv3d",
+                                norm_op="torch.nn.modules.instancenorm."
+                                        "InstanceNorm3d"),
+            "_kw_requires_import": ["conv_op", "norm_op"]}
+    root = os.path.dirname(os.environ["nnUNet_raw"])
+    plans = write_train_dataset(root, 4, 1, ds, (40, 48, 48), k, arch,
+                                (32, 32, 32), plans_id)
+    teacher = join(os.environ["nnUNet_results"], ds,
+                   f"NNUNetTrainer__{plans_id}__3d_fullres")
+    maybe_mkdir_p(teacher)
+    save_json(plans, join(teacher, "plans.json"))
+    net = get_network_from_plans(arch["network_class_name"],
+                                 arch["arch_kwargs"], (), 1, k,
+                                 trainable=True)
+    for f in range(2):
+        maybe_mkdir_p(join(teacher, f"fold_{f}"))
+        save_checkpoint(join(teacher, f"fold_{f}", "checkpoint_final.fnnx"),
+                        network_weights=params_to_jax(
+                            init_he_normal_(net, 200 + f)))
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="1", FNNT_NUM_EPOCHS="1")
+    n0 = ka.spatial_sum_sumsq.launches
+    t0 = time.perf_counter()
+    resenc_distillation_train_entry(["-d", ds, "-tpl", plans_id, "-spl",
+                                     plans_id, "--use_da5"])
+    wall = time.perf_counter() - t0
+    launches = ka.spatial_sum_sumsq.launches - n0
+    ck = load_checkpoint(join(
+        os.environ["nnUNet_results"], ds,
+        f"NNUNetDistillationTrainerDA5__{plans_id}__3d_fullres", "fold_0",
+        "checkpoint_final.fnnx"))
+    lg = ck["logging"]
+    seg, dist = lg["train_seg_losses"][0], lg["train_distill_losses"][0]
+    print(f"small: fast_nnunet_resenc_distill_torch --use_da5 "
+          f"({ck['trainer_name']}, 2 teacher folds, {iters} iterations, "
+          f"patch 32^3) {wall:.3f} s on the card, {launches} kernel A "
+          f"launches; seg loss {seg:.4f}, distill loss {dist:.4f}")
+    check(ck["trainer_name"] == "NNUNetDistillationTrainerDA5",
+          f"trainer {ck['trainer_name']}")
+    check(np.isfinite(seg) and np.isfinite(dist), "DA5 distillation losses")
+    check(launches > 0, "the DA5 distillation launched no kernel A")
+    return {"wall_s": wall, "a_launches": launches, "seg_loss": seg,
+            "distill_loss": dist}
+
+
+def small_train_step(torch, dev, cls="PlainConvUNet", arch=SMALL_ARCH,
+                     name="train step", kernel_a=True):
+    """Three SGD steps of a narrow training network ``cls`` at ``arch``,
+    fp32 with TF32 off and deterministic cuDNN, cuda (kernel A, unless
+    ``kernel_a`` is False: a BatchNorm network has no InstanceNorm) vs cpu
+    (plain version): losses within 1e-4 relative, parameters (and a
+    BatchNorm network's running averages) within 1e-5 absolute."""
     import numpy as np
     from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
     from fast_nnunet_tpu_torch.models.s2d import random_plain_params
-    from fast_nnunet_tpu_torch.models.unet import params_from_jax
+    from fast_nnunet_tpu_torch.models.unet import (init_he_normal_,
+                                                   params_from_jax,
+                                                   params_to_jax)
     from fast_nnunet_tpu_torch.ops import stats as ka
     from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
     from fast_nnunet_tpu_torch.training.schedules import poly_lr
@@ -1666,21 +2036,25 @@ def small_train_step(torch, dev):
         batches.append((torch.from_numpy(x), (
             torch.from_numpy(lab), torch.from_numpy(lab[:, ::2, ::2, ::2]
                                                     .copy()))))
-    tree = random_plain_params(SMALL_ARCH, 1, 4, seed=6)
+
+    def build():
+        return get_network_from_plans(
+            cls, arch, (), 1, 4, compute_dtype=torch.float32,
+            norm_onepass=True, trainable=True)
+
+    tree = random_plain_params(arch, 1, 4, seed=6) \
+        if cls == "PlainConvUNet" and "norm_op" not in arch \
+        else params_to_jax(init_he_normal_(build(), 6))
     res = []
     try:
         for d in (dev, torch.device("cpu")):
-            net = params_from_jax(get_network_from_plans(
-                "PlainConvUNet", SMALL_ARCH, (), 1, 4,
-                compute_dtype=torch.float32, norm_onepass=True,
-                trainable=True), tree).to(d)
+            net = params_from_jax(build(), tree).to(d)
             opt = nnunet_sgd(net.parameters(), poly_lr(1e-2, 10))
             step = make_train_step(net, opt, n_ds_levels=2)
             n0 = ka.spatial_sum_sumsq.launches
             losses = [float(step(x.to(d), tuple(t.to(d) for t in tg)))
                       for x, tg in batches]
-            res.append((losses, [p.detach().cpu() for p in
-                                 net.parameters()],
+            res.append((losses, params_to_jax(net),
                         ka.spatial_sum_sumsq.launches - n0))
     finally:
         torch.backends.cudnn.allow_tf32, \
@@ -1688,14 +2062,20 @@ def small_train_step(torch, dev):
     (lc, pc, n_k), (lp, pp, _) = res
     lc, lp = np.array(lc), np.array(lp)
     loss_rel = float(np.abs(lc - lp).max() / np.abs(lp).max())
-    p_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
-    print(f"small: fp32 train step x3 cuda ({n_k} kernel A "
+
+    def leaves(t):
+        return [v for x in t.values() for v in (
+            leaves(x) if isinstance(x, dict) else [x])]
+    p_err = max(float(np.abs(a - b).max())
+                for a, b in zip(leaves(pc), leaves(pp)))
+    print(f"small: fp32 {name} x3 cuda ({n_k} kernel A "
           f"launches) vs cpu: losses {lc.round(6).tolist()} vs "
           f"{lp.round(6).tolist()}, max loss rel diff {loss_rel:.3e} "
           f"(bound 1e-4), max parameter diff {p_err:.3e} (bound 1e-5)")
-    check(n_k > 0, "kernel A not launched in the small step")
+    check((n_k > 0) == kernel_a, f"small {name}: {n_k} kernel A launches")
     check(loss_rel <= 1e-4 and p_err <= 1e-5,
-          f"small train step cuda vs cpu: loss {loss_rel}, params {p_err}")
+          f"small {name} cuda vs cpu: loss {loss_rel}, params {p_err}")
+    return {"loss_rel": loss_rel, "param_err": p_err, "a_launches": n_k}
 
 
 if __name__ == "__main__":

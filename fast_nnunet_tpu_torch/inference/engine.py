@@ -1,5 +1,6 @@
 """Sliding-window engine — the port of fast_nnunet_tpu/inference/engine.py
-``SlidingWindowEngine``, for a plain ``PlainConvUNet`` (models/unet.py) or a
+``SlidingWindowEngine``, for a U-Net of models/unet.py (plain or residual
+encoder, InstanceNorm or BatchNorm) or a
 space-to-depth ``S2DPlainConvUNet`` (models/s2d.py).
 
 The JAX engine traces each route into one program (``lax.scan`` over tile
@@ -356,6 +357,7 @@ class SlidingWindowEngine:
                                      for _ in trees[1:]]
             for net, tree in zip(nets, trees):
                 unet_model.params_from_jax(net, tree)
+                net.eval()  # a BatchNorm predicts with its running averages
         self._folds = (trees, nets)  # holds the trees: identity stays valid
         return nets
 

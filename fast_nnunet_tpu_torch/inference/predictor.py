@@ -8,8 +8,11 @@ from the JAX package; the device part is the port's
 ensembled and mirror TTA averaged in every tile forward. Runs on ``cuda``
 unless the caller passes ``device="cpu"``.
 
-Ported: plain and distillation-student ``PlainConvUNet`` checkpoints in 3D.
-Primus checkpoints and the cascade's previous-stage input raise
+Ported: 3D ``PlainConvUNet`` and ``ResidualEncoderUNet`` checkpoints, their
+distilled students (LiteNNUNetStudent, LiteResEncStudent) and BatchNorm
+networks (``NNUNetTrainerBN``: a checkpoint whose weights carry
+``batch_stats`` is rebuilt with BatchNorm and predicts with its running
+averages). Primus checkpoints and the cascade's previous-stage input raise
 ``NotImplementedError``.
 """
 import os
@@ -23,9 +26,8 @@ import torch
 from ..core.labels import determine_num_input_channels
 from ..core.plans import PlansManager
 from ..device import resolve_device
-from ..models.factory import (build_network_from_arch_dict,
-                              get_network_from_plans)
-from ..models.students import build_student_arch_kwargs
+from ..models.factory import build_network_from_arch_dict, with_batch_norm
+from ..models.students import build_lite_student
 from ..preprocessing.preprocessor import DefaultPreprocessor
 from ..training.checkpoint import load_checkpoint
 from ..utils.dataset_io import get_identifiers_from_splitted_dataset_folder
@@ -113,16 +115,18 @@ class NNUNetPredictor:
 
         # rebuild the network as the checkpoint's trainer built it
         arch = configuration_manager.configuration["architecture"]
+        if "batch_stats" in parameters[0]:
+            arch = with_batch_norm(arch)
         k = label_manager.num_segmentation_heads
         if init_args.get("primus_arch"):
             raise NotImplementedError("Primus networks are not ported yet")
         if trainer_name and "Distillation" in trainer_name:
-            network = get_network_from_plans(
-                arch["network_class_name"], build_student_arch_kwargs(
-                    arch["arch_kwargs"],
-                    init_args.get("feature_reduction_factor", 2),
-                    init_args.get("block_reduction_strategy", "reduce")),
-                (), num_input_channels, k, compute_dtype=self.compute_dtype)
+            network = build_lite_student(
+                arch["network_class_name"], arch["arch_kwargs"],
+                num_input_channels, k,
+                init_args.get("feature_reduction_factor", 2),
+                init_args.get("block_reduction_strategy", "reduce"),
+                compute_dtype=self.compute_dtype)
         else:
             network = build_network_from_arch_dict(
                 arch, num_input_channels, k, self.compute_dtype)
@@ -135,9 +139,9 @@ class NNUNetPredictor:
                               configuration_manager, parameters: List,
                               dataset_json: dict, trainer_name: str,
                               inference_allowed_mirroring_axes) -> None:
-        """network: a port ``PlainConvUNet``; parameters: one JAX-layout
-        tree per fold (numpy arrays), loaded into the network and its fold
-        copies by the engine."""
+        """network: a port U-Net (models/unet.py); parameters: one
+        JAX-layout tree per fold (numpy arrays), loaded into the network and
+        its fold copies by the engine."""
         self.network = network.to(self.device)
         self.plans_manager = plans_manager
         self.configuration_manager = configuration_manager

@@ -1,5 +1,6 @@
-"""Building blocks of the plain U-Net: conv + InstanceNorm + leaky-ReLU
-stacks — the port of fast_nnunet_tpu/models/blocks.py.
+"""Building blocks of the U-Nets: conv + norm + leaky-ReLU stacks and the
+residual encoder's ``BasicResBlockD`` — the port of
+fast_nnunet_tpu/models/blocks.py.
 
 Layout is torch's NCDHW, with the JAX package's spatial order (X, Y, Z) as
 (D, H, W). Convolutions pad k//2 on each side, as the JAX blocks do, and
@@ -21,10 +22,21 @@ InstanceNorm has the JAX block's two forms:
   ``ops.stats.SpatialSumSumsq`` (forward on the card, plain torch backward);
   below it from torch's mean.
 
+``BatchStatsNorm`` is torch-parity BatchNorm (JAX blocks.py:86-135), plain
+torch as in the JAX package (no kernel): in training mode (``.train()``) it
+normalises with the batch's two-pass float32 statistics over batch and
+spatial dims (biased variance) and moves its running averages once per
+forward, ``ra = (1 - 0.1) ra + 0.1 batch`` with the unbiased variance; in
+evaluation mode (``.eval()``: validation, prediction) it normalises with the
+running averages. The norm of a block is chosen by ``norm``: "instance"
+(two-pass), "instance1p" (one-pass) or "batch", the JAX ``norm_kind``.
+
 ``StackedConvBlocks(remat=True)`` recomputes its blocks in the backward
-(``torch.utils.checkpoint``, the counterpart of flax ``nn.remat``).
-``BatchStatsNorm`` and ``BasicResBlockD`` are not ported: models/factory.py
-raises ``NotImplementedError`` for the networks that need them.
+(``torch.utils.checkpoint``, the counterpart of flax ``nn.remat``); the
+residual encoder does the same per ``BasicResBlockD`` (models/unet.py). A
+recomputed BatchNorm would move its running averages a second time, so
+BatchNorm networks are built without remat (models/factory.py), as JAX's
+``NNUNetTrainerBN`` builds them.
 """
 import math
 from typing import Sequence
@@ -107,21 +119,76 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, self.weight, self.bias, self.eps)
 
 
+class BatchStatsNorm(nn.Module):
+    """Affine BatchNorm with float32 running averages (module docstring);
+    ``weight``/``bias`` are the flax ``scale``/``bias``, ``running_mean``/
+    ``running_var`` the ``batch_stats`` ``mean``/``var``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(channels), requires_grad=False)
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.eps = float(eps)
+        self.momentum = float(momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            dims = (0,) + tuple(range(2, x.dim()))
+            var, mean = torch.var_mean(x32, dim=dims, correction=0)
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = (x32 - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                      + self.eps)
+        y = y * self.weight.float().reshape(shape) \
+            + self.bias.float().reshape(shape)
+        return y.to(x.dtype)
+
+
+NORM_KINDS = ("instance", "instance1p", "batch")
+
+
+def make_norm(norm: str, channels: int, eps: float) -> nn.Module:
+    """The norm module of kind ``norm`` (:data:`NORM_KINDS`)."""
+    if norm == "batch":
+        return BatchStatsNorm(channels, eps)
+    if norm not in NORM_KINDS:
+        raise ValueError(f"norm must be one of {NORM_KINDS}, got {norm!r}")
+    return InstanceNorm(channels, eps, onepass=norm == "instance1p")
+
+
+def _conv(in_channels: int, features: int, kernel_size: Sequence[int],
+          strides: Sequence[int], bias: bool) -> Conv3d:
+    kernel_size = tuple(int(k) for k in kernel_size)
+    return Conv3d(in_channels, features, kernel_size,
+                  tuple(int(s) for s in strides),
+                  tuple(k // 2 for k in kernel_size), bias=bias)
+
+
 class ConvDropoutNormReLU(nn.Module):
-    """conv -> instance norm -> leaky ReLU, the nnU-Net unit block (dropout
-    is not used by the plans the port runs)."""
+    """conv -> norm -> leaky ReLU, the nnU-Net unit block (dropout is not
+    used by the plans the port runs)."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Sequence[int], strides: Sequence[int],
                  conv_bias: bool = True, norm_eps: float = 1e-5,
                  nonlin_negative_slope: float = 0.01,
-                 norm_onepass: bool = False):
+                 norm: str = "instance"):
         super().__init__()
-        kernel_size = tuple(int(k) for k in kernel_size)
-        self.conv = Conv3d(in_channels, features, kernel_size,
-                           tuple(int(s) for s in strides),
-                           tuple(k // 2 for k in kernel_size), bias=conv_bias)
-        self.norm = InstanceNorm(features, norm_eps, norm_onepass)
+        self.conv = _conv(in_channels, features, kernel_size, strides,
+                          conv_bias)
+        self.norm = make_norm(norm, features, norm_eps)
         self.slope = float(nonlin_negative_slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -138,14 +205,14 @@ class StackedConvBlocks(nn.Module):
                  kernel_size: Sequence[int], initial_strides: Sequence[int],
                  conv_bias: bool = True, norm_eps: float = 1e-5,
                  nonlin_negative_slope: float = 0.01,
-                 norm_onepass: bool = False, remat: bool = False):
+                 norm: str = "instance", remat: bool = False):
         super().__init__()
         ones = (1,) * len(kernel_size)
         self.blocks = nn.ModuleDict({
             f"block_{i}": ConvDropoutNormReLU(
                 in_channels if i == 0 else features, features, kernel_size,
                 initial_strides if i == 0 else ones, conv_bias, norm_eps,
-                nonlin_negative_slope, norm_onepass)
+                nonlin_negative_slope, norm)
             for i in range(int(n_convs))})
         self.remat = bool(remat)
 
@@ -158,3 +225,38 @@ class StackedConvBlocks(nn.Module):
         if self.remat and torch.is_grad_enabled():
             return checkpoint(self._run, x, use_reentrant=False)
         return self._run(x)
+
+
+class BasicResBlockD(nn.Module):
+    """conv(stride) -> norm -> leaky ReLU -> conv -> norm, plus the input or,
+    when the stride or the channel count changes, a 1x1 strided
+    ``skip_conv`` (no bias) and ``skip_norm``; leaky ReLU after the sum
+    (JAX blocks.py:204-241, which decides on the skip from the input's
+    channels at call time; here they are known at construction)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Sequence[int], strides: Sequence[int],
+                 conv_bias: bool = True, norm_eps: float = 1e-5,
+                 nonlin_negative_slope: float = 0.01,
+                 norm: str = "instance"):
+        super().__init__()
+        ones = (1,) * len(kernel_size)
+        self.conv1 = _conv(in_channels, features, kernel_size, strides,
+                           conv_bias)
+        self.norm1 = make_norm(norm, features, norm_eps)
+        self.conv2 = _conv(features, features, kernel_size, ones, conv_bias)
+        self.norm2 = make_norm(norm, features, norm_eps)
+        if tuple(strides) != ones or in_channels != features:
+            self.skip_conv = _conv(in_channels, features, ones, strides,
+                                   False)
+            self.skip_norm = make_norm(norm, features, norm_eps)
+        else:
+            self.skip_conv = self.skip_norm = None
+        self.slope = float(nonlin_negative_slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.leaky_relu_(self.norm1(self.conv1(x)), self.slope)
+        y = self.norm2(self.conv2(y))
+        skip = x if self.skip_conv is None else \
+            self.skip_norm(self.skip_conv(x))
+        return F.leaky_relu_(y + skip, self.slope)

@@ -1,8 +1,12 @@
-"""Lite student architecture kwargs for distilled models (a copy of
-``build_student_arch_kwargs`` and its helpers from
-fast_nnunet_tpu/models/students.py): features f -> max(f // r, 8) per stage,
-residual block counts mapped by strategy."""
+"""Lite students for distillation (a copy of fast_nnunet_tpu/models/
+students.py): features f -> max(f // r, 8) per stage, residual block counts
+mapped by strategy; ``build_lite_student`` builds the LiteNNUNetStudent /
+LiteResEncStudent as a reduced instance of the teacher's architecture."""
 from typing import Sequence
+
+import torch
+
+from .factory import get_network_from_plans
 
 MIN_STUDENT_FEATURES = 8
 
@@ -43,3 +47,17 @@ def build_student_arch_kwargs(teacher_arch_kwargs: dict,
         kw["n_blocks_per_stage"] = list(apply_block_strategy(
             kw["n_blocks_per_stage"], block_reduction_strategy))
     return kw
+
+
+def build_lite_student(arch_class_name: str, teacher_arch_kwargs: dict,
+                       input_channels: int, num_classes: int,
+                       reduction_factor: int = 2,
+                       block_reduction_strategy: str = "reduce",
+                       compute_dtype: torch.dtype = torch.bfloat16, **kw):
+    """A LiteNNUNetStudent / LiteResEncStudent: the teacher's architecture
+    class at the reduced kwargs (``kw`` goes to the factory: ``remat``,
+    ``norm_onepass``, ``trainable``)."""
+    return get_network_from_plans(
+        arch_class_name, build_student_arch_kwargs(
+            teacher_arch_kwargs, reduction_factor, block_reduction_strategy),
+        (), input_channels, num_classes, compute_dtype=compute_dtype, **kw)

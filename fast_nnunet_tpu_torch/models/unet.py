@@ -1,5 +1,7 @@
-"""The plain U-Net (PlainConvUNet, and width-reduced the LiteNNUNetStudent)
-as an ``nn.Module`` — the port of fast_nnunet_tpu/models/unet.py.
+"""The U-Nets as ``nn.Module``s — the port of fast_nnunet_tpu/models/unet.py:
+``PlainConvUNet`` (and, width-reduced, the LiteNNUNetStudent) and
+``ResidualEncoderUNet`` (nnU-Net's ResEnc M/L/XL presets, and reduced, the
+LiteResEncStudent).
 
 Forward contract: input (B, C_in, X, Y, Z) in NCDHW with the JAX package's
 spatial order; output float32 logits (B, K, X, Y, Z) of the full-resolution
@@ -9,21 +11,28 @@ whether or not deep supervision is asked for, so a JAX checkpoint loads 1:1;
 without it only the full-resolution head runs (the JAX module computes all
 heads and returns the first: same result).
 
+The residual encoder is a stem (one conv -> norm -> leaky ReLU at stride
+1) and ``n_blocks_per_stage[s]`` ``BasicResBlockD`` per stage, the first
+carrying the stage's stride; its skips feed the same ``UNetDecoder``.
+
 Weights come from the JAX package's flax trees through
 :func:`params_from_jax` (the conv / transposed-conv conventions that
 models/s2d.py pins, the transposed-conv flip included) or from a ``.fnnx``
 checkpoint through :func:`restore`; :func:`params_to_jax` is the inverse
-(the training checkpoint writer uses it). ``ResidualEncoderUNet`` is not
-ported.
+(the training checkpoint writer uses it). One list per network,
+:func:`jax_param_paths` (flax path, tensor, layout kind), drives both and
+:func:`init_he_normal_` and :func:`params_from_jax_partial`; a BatchNorm
+network adds the ``batch_stats`` collection (``{mean, var}`` per norm)
+beside ``params``.
 
 Two forms: the inference form (default) holds its conv weights in the
 compute dtype and no gradients; ``trainable=True`` holds float32 master
 parameters with gradients, cast to the compute dtype inside the forward (as
 flax with ``dtype=bf16`` and float32 params). Training builds also take
-``norm_onepass=True`` (models/blocks.py) and ``remat`` with the JAX rule:
-any truthy value checkpoints every encoder stack; ``True`` every decoder
-stack too, ``"light"`` only the full-resolution decoder stack,
-``"encoder"`` none of them.
+``norm="instance1p"`` (models/blocks.py) and ``remat`` with the JAX rule:
+any truthy value checkpoints every encoder stack (every residual block, not
+the stem); ``True`` every decoder stack too, ``"light"`` only the
+full-resolution decoder stack, ``"encoder"`` none of them.
 """
 import math
 from typing import Callable, List, Sequence, Tuple, Union
@@ -31,10 +40,11 @@ from typing import Callable, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..training.checkpoint import load_checkpoint
-from .blocks import (Conv3d, ConvTranspose3d, InstanceNorm,
-                     StackedConvBlocks)
+from .blocks import (BasicResBlockD, BatchStatsNorm, ConvDropoutNormReLU,
+                     ConvTranspose3d, Conv3d, StackedConvBlocks)
 from .s2d import _conv_weight, _set, _transpconv_weight
 
 
@@ -57,14 +67,14 @@ class PlainConvEncoder(nn.Module):
                  features_per_stage: Sequence[int], kernel_sizes, strides,
                  n_conv_per_stage: Sequence[int], conv_bias: bool = True,
                  norm_eps: float = 1e-5, nonlin_negative_slope: float = 0.01,
-                 norm_onepass: bool = False, remat=False):
+                 norm: str = "instance", remat=False):
         super().__init__()
         f = [int(v) for v in features_per_stage]
         self.stages = nn.ModuleDict({
             f"stage_{s}": StackedConvBlocks(
                 n_conv_per_stage[s], input_channels if s == 0 else f[s - 1],
                 f[s], kernel_sizes[s], strides[s], conv_bias, norm_eps,
-                nonlin_negative_slope, norm_onepass, bool(remat))
+                nonlin_negative_slope, norm, bool(remat))
             for s in range(int(n_stages))})
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -72,6 +82,48 @@ class PlainConvEncoder(nn.Module):
         for stage in self.stages.values():
             x = stage(x)
             skips.append(x)
+        return tuple(skips)
+
+
+class ResidualEncoder(nn.Module):
+    """``stem`` then ``BasicResBlockD`` children ``stage_{s}_block_{b}`` (the
+    flax names); with ``remat`` each block is recomputed in the backward,
+    the stem is not (JAX unet.py:97)."""
+
+    def __init__(self, input_channels: int, n_stages: int,
+                 features_per_stage: Sequence[int], kernel_sizes, strides,
+                 n_blocks_per_stage: Sequence[int], conv_bias: bool = True,
+                 norm_eps: float = 1e-5, nonlin_negative_slope: float = 0.01,
+                 norm: str = "instance", remat=False):
+        super().__init__()
+        f = [int(v) for v in features_per_stage]
+        ones = (1,) * len(kernel_sizes[0])
+        self.stem = ConvDropoutNormReLU(input_channels, f[0], kernel_sizes[0],
+                                        ones, conv_bias, norm_eps,
+                                        nonlin_negative_slope, norm)
+        self.blocks = nn.ModuleDict()
+        self.stage_ends = []    # index of each stage's last block
+        cin = f[0]
+        for s in range(int(n_stages)):
+            for b in range(int(n_blocks_per_stage[s])):
+                self.blocks[f"stage_{s}_block_{b}"] = BasicResBlockD(
+                    cin, f[s], kernel_sizes[s], strides[s] if b == 0 else ones,
+                    conv_bias, norm_eps, nonlin_negative_slope, norm)
+                cin = f[s]
+            self.stage_ends.append(len(self.blocks) - 1)
+        self.remat = bool(remat)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = self.stem(x)
+        skips = []
+        ends = set(self.stage_ends)
+        for i, blk in enumerate(self.blocks.values()):
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
+            if i in ends:
+                skips.append(x)
         return tuple(skips)
 
 
@@ -84,7 +136,7 @@ class UNetDecoder(nn.Module):
                  kernel_sizes, strides, n_conv_per_stage_decoder: Sequence[int],
                  conv_bias: bool = True, norm_eps: float = 1e-5,
                  nonlin_negative_slope: float = 0.01,
-                 norm_onepass: bool = False, remat=False):
+                 norm: str = "instance", remat=False):
         super().__init__()
         f = [int(v) for v in features_per_stage]
         n = len(f)
@@ -99,7 +151,7 @@ class UNetDecoder(nn.Module):
             mods[f"stage_{d}"] = StackedConvBlocks(
                 n_conv_per_stage_decoder[d], 2 * cout, cout,
                 kernel_sizes[-(s + 1)], (1,) * len(st), conv_bias, norm_eps,
-                nonlin_negative_slope, norm_onepass,
+                nonlin_negative_slope, norm,
                 remat is True or (remat == "light" and s == n - 1))
             mods[f"seg_head_{d}"] = Conv3d(cout, num_classes, 1, bias=True)
         self.mods = mods
@@ -125,20 +177,19 @@ class UNetDecoder(nn.Module):
 REMAT_MODES = (False, True, "encoder", "light")
 
 
-class PlainConvUNet(nn.Module):
-    """The nnU-Net workhorse. ``compute_dtype`` is the dtype of the
-    convolutions (the flax module's ``dtype``); inputs are cast to it.
-    ``norm_onepass``, ``remat`` and ``trainable`` select the training form
-    (module docstring)."""
+class _UNet(nn.Module):
+    """What both U-Nets share: the input cast to ``compute_dtype`` (the
+    flax module's ``dtype``), the decoder, and the two forms (module
+    docstring): ``trainable`` float32 master parameters with gradients, or
+    the inference form's conv weights in the compute dtype."""
 
     def __init__(self, input_channels: int, n_stages: int,
                  features_per_stage: Sequence[int], kernel_sizes, strides,
-                 n_conv_per_stage: Sequence[int], num_classes: int,
-                 n_conv_per_stage_decoder: Sequence[int],
-                 conv_bias: bool = True, norm_eps: float = 1e-5,
-                 nonlin_negative_slope: float = 0.01, dim: int = 3,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 norm_onepass: bool = False, remat=False,
+                 num_classes: int, n_conv_per_stage_decoder: Sequence[int],
+                 make_encoder: Callable, conv_bias: bool = True,
+                 norm_eps: float = 1e-5, nonlin_negative_slope: float = 0.01,
+                 dim: int = 3, compute_dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "instance", remat=False,
                  trainable: bool = False):
         super().__init__()
         if dim != 3:
@@ -154,13 +205,13 @@ class PlainConvUNet(nn.Module):
         self.num_classes = int(num_classes)
         self.compute_dtype = compute_dtype
         self.trainable = bool(trainable)
-        self.encoder = PlainConvEncoder(
-            input_channels, n_stages, features_per_stage, ks, st,
-            n_conv_per_stage, conv_bias, norm_eps, nonlin_negative_slope,
-            norm_onepass, remat)
+        self.encoder = make_encoder(ks, st, dict(
+            conv_bias=conv_bias, norm_eps=norm_eps,
+            nonlin_negative_slope=nonlin_negative_slope, norm=norm,
+            remat=remat))
         self.decoder = UNetDecoder(
             num_classes, features_per_stage, ks, st, n_conv_per_stage_decoder,
-            conv_bias, norm_eps, nonlin_negative_slope, norm_onepass, remat)
+            conv_bias, norm_eps, nonlin_negative_slope, norm, remat)
         self.requires_grad_(self.trainable)
         if not self.trainable:
             for m in self.modules():
@@ -172,84 +223,92 @@ class PlainConvUNet(nn.Module):
                             deep_supervision=deep_supervision)
 
 
+class PlainConvUNet(_UNet):
+    """The nnU-Net workhorse. ``norm``, ``remat`` and ``trainable`` select
+    the training form (module docstring)."""
+
+    def __init__(self, input_channels: int, n_stages: int,
+                 features_per_stage: Sequence[int], kernel_sizes, strides,
+                 n_conv_per_stage: Sequence[int], num_classes: int,
+                 n_conv_per_stage_decoder: Sequence[int], **kw):
+        super().__init__(
+            input_channels, n_stages, features_per_stage, kernel_sizes,
+            strides, num_classes, n_conv_per_stage_decoder,
+            lambda ks, st, common: PlainConvEncoder(
+                input_channels, n_stages, features_per_stage, ks, st,
+                n_conv_per_stage, **common), **kw)
+
+
+class ResidualEncoderUNet(_UNet):
+    """nnU-Net's residual-encoder U-Net (JAX unet.py:247-287): a
+    :class:`ResidualEncoder` under the plain decoder."""
+
+    def __init__(self, input_channels: int, n_stages: int,
+                 features_per_stage: Sequence[int], kernel_sizes, strides,
+                 n_blocks_per_stage: Sequence[int], num_classes: int,
+                 n_conv_per_stage_decoder: Sequence[int], **kw):
+        super().__init__(
+            input_channels, n_stages, features_per_stage, kernel_sizes,
+            strides, num_classes, n_conv_per_stage_decoder,
+            lambda ks, st, common: ResidualEncoder(
+                input_channels, n_stages, features_per_stage, ks, st,
+                n_blocks_per_stage, **common), **kw)
+
+
+def remat_modules(net: nn.Module) -> List[nn.Module]:
+    """The modules whose forward a training step recomputes in the
+    backward: checkpointed conv stacks and, under a remat residual encoder,
+    every residual block."""
+    mods = [m for m in net.modules()
+            if isinstance(m, StackedConvBlocks) and m.remat]
+    enc = net.encoder
+    if isinstance(enc, ResidualEncoder) and enc.remat:
+        mods += list(enc.blocks.values())
+    return mods
+
+
 # ----------------------------------------------------------- weight carrier
-def _load_conv(mod: nn.Module, t: dict, path: str, dt: torch.dtype,
-               transposed: bool = False) -> None:
-    w = _transpconv_weight(t["kernel"]) if transposed \
-        else _conv_weight(t["kernel"])
-    _set(mod.weight, w, path + "/kernel", dt)
-    if mod.bias is not None:
-        _set(mod.bias, t.get("bias", np.zeros(mod.bias.shape[0], np.float32)),
-             path + "/bias", dt)
-    elif "bias" in t:
-        raise ValueError(f"{path}: tree has a bias, the module has none")
-
-
-def _load_stack(stack: StackedConvBlocks, t: dict, path: str,
-                dt: torch.dtype) -> None:
-    _same_keys(stack.blocks, t, path)
-    for name, blk in stack.blocks.items():
-        _load_conv(blk.conv, t[name]["conv"], f"{path}/{name}/conv", dt)
-        norm: InstanceNorm = blk.norm
-        _set(norm.weight, t[name]["norm"]["scale"],
-             f"{path}/{name}/norm/scale", torch.float32)
-        _set(norm.bias, t[name]["norm"]["bias"], f"{path}/{name}/norm/bias",
-             torch.float32)
-
-
-def _same_keys(mods, t: dict, path: str) -> None:
-    if set(mods.keys()) != set(t.keys()):
-        raise ValueError(f"{path}: tree keys {sorted(t)} != module keys "
-                         f"{sorted(mods.keys())}")
-
-
-def params_from_jax(net: PlainConvUNet, tree: dict) -> PlainConvUNet:
-    """Load a JAX-package PlainConvUNet tree (``{"params": {"encoder": ...,
-    "decoder": ...}}`` of numpy arrays, every seg head included) into
-    ``net``. Convolution and transposed-convolution weights are stored in
-    the compute dtype (float32 in a ``trainable`` network), norm parameters
-    in float32; a tree whose structure or shapes differ from the module
-    raises."""
-    p = tree["params"] if "params" in tree else tree
-    dt = torch.float32 if net.trainable else net.compute_dtype
-    _same_keys(net.encoder.stages, p["encoder"], "encoder")
-    for name, stage in net.encoder.stages.items():
-        _load_stack(stage, p["encoder"][name], f"encoder/{name}", dt)
-    _same_keys(net.decoder.mods, p["decoder"], "decoder")
-    for name, mod in net.decoder.mods.items():
-        t, path = p["decoder"][name], f"decoder/{name}"
-        if isinstance(mod, StackedConvBlocks):
-            _load_stack(mod, t, path, dt)
-        else:
-            _load_conv(mod, t, path, dt,
-                       transposed=isinstance(mod, nn.ConvTranspose3d))
-    return net
-
-
-def jax_param_paths(net: PlainConvUNet) -> List[Tuple[tuple, nn.Parameter,
-                                                    str]]:
-    """(flax tree path, parameter, layout kind) for every parameter of
-    ``net``; the kind is "conv", "transpconv" or "vector" (see
-    :func:`to_flax_layout`)."""
+def jax_param_paths(net: nn.Module) -> List[Tuple[tuple, torch.Tensor, str]]:
+    """(flax tree path, tensor, layout kind) for every parameter of
+    ``net`` (collection ``params``) and every running average of its
+    BatchNorms (collection ``batch_stats``), in module order; the kind is
+    "conv", "transpconv" or "vector" (see :func:`to_flax_layout`). The one
+    description of a network's tree that the loaders, the writers and the
+    initialiser read."""
     out = []
 
-    def conv(mod, path, kind):
-        out.append((path + ("kernel",), mod.weight, kind))
+    def conv(mod, path, kind="conv"):
+        out.append((("params",) + path + ("kernel",), mod.weight, kind))
         if mod.bias is not None:
-            out.append((path + ("bias",), mod.bias, "vector"))
+            out.append((("params",) + path + ("bias",), mod.bias, "vector"))
+
+    def norm(mod, path):
+        out.append((("params",) + path + ("scale",), mod.weight, "vector"))
+        out.append((("params",) + path + ("bias",), mod.bias, "vector"))
+        if isinstance(mod, BatchStatsNorm):
+            out.append((("batch_stats",) + path + ("mean",),
+                        mod.running_mean, "vector"))
+            out.append((("batch_stats",) + path + ("var",),
+                        mod.running_var, "vector"))
+
+    def unit(blk, path):
+        for name, mod in blk.named_children():
+            (conv if isinstance(mod, nn.Conv3d) else norm)(mod, path + (name,))
 
     def stack(st, path):
         for name, blk in st.blocks.items():
-            conv(blk.conv, path + (name, "conv"), "conv")
-            out.append((path + (name, "norm", "scale"), blk.norm.weight,
-                        "vector"))
-            out.append((path + (name, "norm", "bias"), blk.norm.bias,
-                        "vector"))
+            unit(blk, path + (name,))
 
-    for name, st in net.encoder.stages.items():
-        stack(st, ("params", "encoder", name))
+    enc = net.encoder
+    if isinstance(enc, ResidualEncoder):
+        unit(enc.stem, ("encoder", "stem"))
+        for name, blk in enc.blocks.items():
+            unit(blk, ("encoder", name))
+    else:
+        for name, st in enc.stages.items():
+            stack(st, ("encoder", name))
     for name, mod in net.decoder.mods.items():
-        path = ("params", "decoder", name)
+        path = ("decoder", name)
         if isinstance(mod, StackedConvBlocks):
             stack(mod, path)
         else:
@@ -278,15 +337,19 @@ def from_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
     return np.asarray(w)
 
 
-def tree_to_jax(net: PlainConvUNet, value: Callable) -> dict:
-    """A flax-shaped tree of float32 numpy arrays holding ``value(param)``
-    (a tensor in the parameter's torch layout) for every parameter."""
+def tree_to_jax(net: nn.Module, value: Callable,
+                collections: Sequence[str] = ("params",)) -> dict:
+    """A flax-shaped tree of float32 numpy arrays holding ``value(tensor)``
+    (a tensor in the torch layout) for every entry of ``collections``."""
     tree: dict = {}
     for path, prm, kind in jax_param_paths(net):
+        if path[0] not in collections:
+            continue
         d = tree
         for k in path[:-1]:
             d = d.setdefault(k, {})
-        t = value(prm).detach().to(device="cpu", dtype=torch.float32)
+        t = value(prm).detach().to(device="cpu", dtype=torch.float32,
+                                   copy=True)   # no view of live weights
         d[path[-1]] = to_flax_layout(kind, t.numpy())
     return tree
 
@@ -297,21 +360,56 @@ def tree_get(tree: dict, path: tuple):
     return tree
 
 
-def params_to_jax(net: PlainConvUNet) -> dict:
-    """The inverse of :func:`params_from_jax`: ``net``'s weights as a
-    JAX-package PlainConvUNet tree (``{"params": {"encoder": ...,
-    "decoder": ...}}``, nested dicts of float32 numpy arrays, flax kernel
-    layouts)."""
-    return tree_to_jax(net, lambda p: p)
+def _leaf_paths(tree, prefix=()) -> List[tuple]:
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k, v in tree.items() for p in _leaf_paths(v, prefix + (k,))]
 
 
-def init_he_normal_(net: PlainConvUNet, seed: int,
-                    negative_slope: float = 1e-2) -> PlainConvUNet:
+def _with_collections(tree: dict) -> dict:
+    """A bare ``params`` tree gets its ``{"params": ...}`` wrapper."""
+    return tree if "params" in tree else {"params": tree}
+
+
+def params_from_jax(net: nn.Module, tree: dict) -> nn.Module:
+    """Load a JAX-package U-Net tree (``{"params": {"encoder": ...,
+    "decoder": ...}[, "batch_stats": ...]}`` of numpy arrays, every seg
+    head included) into ``net``, each tensor in the dtype the module holds
+    it in. A tree whose structure or shapes differ from the module raises
+    (a conv bias missing from the tree loads as zeros)."""
+    tree = _with_collections(tree)
+    items = jax_param_paths(net)
+    want = {path for path, _, _ in items}
+    have = set(_leaf_paths(tree))
+    missing = want - have
+    optional = {p for p in missing
+                if p[-1] == "bias" and p[:-1] + ("kernel",) in have}
+    if have - want or missing - optional:
+        raise ValueError(
+            "tree and module differ: only in the tree "
+            f"{sorted('/'.join(p) for p in have - want)[:4]}, only in the "
+            f"module {sorted('/'.join(p) for p in missing - optional)[:4]}")
+    for path, t, kind in items:
+        v = np.zeros(t.shape, np.float32) if path in optional \
+            else from_flax_layout(kind, tree_get(tree, path))
+        _set(t, v, "/".join(path), t.dtype)
+    return net
+
+
+def params_to_jax(net: nn.Module) -> dict:
+    """The inverse of :func:`params_from_jax`: ``net``'s weights (and a
+    BatchNorm network's running averages) as a JAX-package tree, nested
+    dicts of float32 numpy arrays in flax kernel layouts."""
+    return tree_to_jax(net, lambda p: p, ("params", "batch_stats"))
+
+
+def init_he_normal_(net: nn.Module, seed: int,
+                    negative_slope: float = 1e-2) -> nn.Module:
     """Fresh weights as the JAX package initialises them (he_normal_init):
     kernels normal with std sqrt(2 / ((1 + a^2) fan_in)), fan_in = input
-    channels x kernel volume; biases 0; norm scales 1. Seeded with a
-    ``torch.Generator`` on the CPU, so the draw does not depend on the
-    device."""
+    channels x kernel volume; biases and running means 0; norm scales and
+    running variances 1. Seeded with a ``torch.Generator`` on the CPU, so
+    the draw does not depend on the device."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for path, prm, kind in jax_param_paths(net):
@@ -320,7 +418,7 @@ def init_he_normal_(net: PlainConvUNet, seed: int,
                 fan_in = cin * math.prod(prm.shape[2:])
                 std = math.sqrt(2.0 / (1.0 + negative_slope ** 2) / fan_in)
                 w = torch.randn(prm.shape, generator=gen) * std
-            elif path[-2] == "norm" and path[-1] == "scale":
+            elif path[-1] in ("scale", "var"):
                 w = torch.ones(prm.shape)
             else:
                 w = torch.zeros(prm.shape)
@@ -328,13 +426,11 @@ def init_he_normal_(net: PlainConvUNet, seed: int,
     return net
 
 
-def params_from_jax_partial(net: PlainConvUNet, tree: dict
-                            ) -> Tuple[int, int]:
-    """Tolerant load (the JAX ``restore_params_partial``): every parameter
+def params_from_jax_partial(net: nn.Module, tree: dict) -> Tuple[int, int]:
+    """Tolerant load (the JAX ``restore_params_partial``): every entry
     whose flax path exists in ``tree`` with the same shape is copied, the
     rest keep their values. Returns (n_loaded, n_total)."""
-    if "params" not in tree:
-        tree = {"params": tree}
+    tree = _with_collections(tree)
     items = jax_param_paths(net)
     n_loaded = 0
     for path, prm, kind in items:
@@ -349,7 +445,7 @@ def params_from_jax_partial(net: PlainConvUNet, tree: dict
     return n_loaded, len(items)
 
 
-def restore(net: PlainConvUNet, checkpoint: str) -> dict:
+def restore(net: nn.Module, checkpoint: str) -> dict:
     """Load a ``.fnnx`` checkpoint's ``network_weights`` into ``net``
     (numpy-only unpickler, training/checkpoint.py); returns the checkpoint
     dict."""

@@ -2,7 +2,8 @@
 fast_nnunet_tpu/planning/resenc_planner.py: deeper encoders (1, 3, 4, 6, 6,
 ...) with single-conv decoder stages, and the M/L/XL presets for 8/24/40 GB
 memory targets. Their plans name ``ResidualEncoderUNet``, which the port's
-network factory does not build yet (ROADMAP.md §1 item 3)."""
+network factory builds (models/unet.py) for training, distillation and
+prediction."""
 import warnings
 from typing import List, Optional
 

@@ -1,20 +1,26 @@
-"""Distillation training CLI of the port — the counterpart of
-fast_nnunet_tpu/run/distillation_train.py's standard-UNet entry:
+"""Distillation training CLIs of the port — the counterparts of
+fast_nnunet_tpu/run/distillation_train.py's two entries:
 
     fast_nnunet_distill_torch -d DATASET [-c 3d_fullres] [-f 0]
         [-t TEACHER_FOLDER] [-tf 0 1 2 3 4] [-a 0.3] [-temp 3.0] [-r 2]
-        [-e EPOCHS] [-c_continue] [--disable_mirroring] [-device cuda|cpu]
+        [-e EPOCHS] [-c_continue] [--disable_mirroring] [--use_da5]
+        [-device cuda|cpu]
+    fast_nnunet_resenc_distill_torch -d DATASET ... [-tpl
+        nnUNetResEncUNetLPlans] [-spl nnUNetPlans] [-bs reduce]
 
 with ``nnUNet_preprocessed`` and ``nnUNet_results`` set (the teacher folder
-defaults to the results folder of ``NNUNetTrainer__nnUNetPlans__<config>``;
-its folds are detected from the fold_* folders that hold a checkpoint).
-``--use_da5`` raises ``NotImplementedError``, and so does a residual-encoder
-teacher or student (models/factory.py).
+defaults to the results folder of ``NNUNetTrainer__<teacher plans>__
+<config>``; its folds are detected from the fold_* folders that hold a
+checkpoint). The student is built from the student plans' architecture: a
+ResEnc plans identifier (``-spl nnUNetResEncUNetLPlans``) gives a
+LiteResEncStudent, its block counts mapped by ``-bs``. ``--use_da5`` trains
+under the DA5 augmentation.
 """
 import argparse
 from typing import Optional, Sequence
 
-from ..training.distill import NNUNetDistillationTrainer
+from ..training.distill import (NNUNetDistillationTrainer,
+                                NNUNetDistillationTrainerDA5)
 from ..utils.io import isdir, isfile, join, load_json
 from ..utils.misc import get_output_folder, maybe_convert_to_dataset_name
 
@@ -36,8 +42,6 @@ def run_distillation_training(
         student_plans_identifier: str = "nnUNetPlans", device=None):
     """Distil a student for one fold on ``device`` (default the card), then
     validate it."""
-    if use_da5:
-        raise NotImplementedError("DA5 distillation is not ported")
     from ..paths import get_preprocessed_folder
     dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
     preprocessed = join(get_preprocessed_folder(), dataset_name)
@@ -56,7 +60,9 @@ def run_distillation_training(
                 teacher_folder, (teacher_checkpoint, "checkpoint_best.fnnx"))
         print(f"Auto-detected teacher folds: {teacher_folds}")
 
-    trainer = NNUNetDistillationTrainer(
+    trainer_cls = NNUNetDistillationTrainerDA5 if use_da5 \
+        else NNUNetDistillationTrainer
+    trainer = trainer_cls(
         plans, configuration, fold, dataset_json, device=device,
         teacher_model_folder=teacher_folder, teacher_fold=teacher_folds,
         teacher_checkpoint_name=teacher_checkpoint,
@@ -92,10 +98,7 @@ def run_distillation_training(
     return trainer
 
 
-def distillation_train_entry(argv=None):
-    parser = argparse.ArgumentParser(
-        description="3D probability-map knowledge distillation (standard "
-                    "UNet) on one GPU (PyTorch port)")
+def _common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("-d", required=True, help="dataset name or id")
     parser.add_argument("-c", default="3d_fullres", help="configuration")
     parser.add_argument("-f", type=int, default=0, help="training fold")
@@ -116,14 +119,43 @@ def distillation_train_entry(argv=None):
     parser.add_argument("--use_da5", action="store_true")
     parser.add_argument("-device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
-    run_distillation_training(
+
+
+def _run(args, **kw):
+    return run_distillation_training(
         args.d, args.c, args.f, args.t, args.tf, args.tcp, args.a, args.temp,
         args.r, rotate_folds=args.rotate_folds,
         rotate_frequency=args.rotate_freq, num_epochs=args.e,
         continue_training=args.c_continue,
         disable_mirroring=args.disable_mirroring, use_da5=args.use_da5,
-        device=args.device)
+        device=args.device, **kw)
+
+
+def distillation_train_entry(argv=None):
+    parser = argparse.ArgumentParser(
+        description="3D probability-map knowledge distillation (standard "
+                    "UNet) on one GPU (PyTorch port)")
+    _common_args(parser)
+    _run(parser.parse_args(argv))
+
+
+def resenc_distillation_train_entry(argv=None):
+    parser = argparse.ArgumentParser(
+        description="knowledge distillation for ResEnc teachers on one GPU "
+                    "(PyTorch port)")
+    _common_args(parser)
+    parser.add_argument("-tpl", default="nnUNetResEncUNetLPlans",
+                        help="teacher plans identifier")
+    parser.add_argument("-spl", default="nnUNetPlans",
+                        help="student plans identifier (a ResEnc plans "
+                             "identifier gives a LiteResEncStudent)")
+    parser.add_argument("-bs", default="reduce",
+                        choices=("reduce", "keep", "increase", "adaptive"),
+                        help="block reduction strategy")
+    args = parser.parse_args(argv)
+    _run(args, block_reduction_strategy=args.bs,
+         teacher_plans_identifier=args.tpl,
+         student_plans_identifier=args.spl)
 
 
 if __name__ == "__main__":

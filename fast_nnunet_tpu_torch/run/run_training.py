@@ -6,10 +6,12 @@ counterpart of fast_nnunet_tpu/run/run_training.py on one GPU.
         [--val_best] [--npz] [--disable_checkpointing] [-device cuda|cpu]
 
 with ``nnUNet_raw``, ``nnUNet_preprocessed`` and ``nnUNet_results`` set.
-Trainers: ``NNUNetTrainer`` and ``NNUNetDistillationTrainer`` (either
-spelling, ``nnUNetTrainer`` too). Multi-GPU (``-num_gpus`` > 1) and
-multi-host training raise ``NotImplementedError``; so do ``.pth``
-pretrained weights and the other trainer variants.
+Trainers: ``NNUNetTrainer``, the distillation trainers and every trainer
+variant of training/trainer_variants.py, in this framework's spelling or
+the reference's (``nnUNetTrainer*``); ResEnc plans (``-p
+nnUNetResEncUNetLPlans``) train the residual-encoder U-Net. Multi-GPU
+(``-num_gpus`` > 1) and multi-host training raise ``NotImplementedError``;
+so do ``.pth`` pretrained weights and building a Primus trainer's network.
 """
 import argparse
 
@@ -18,19 +20,32 @@ from ..utils.io import isfile, join, load_json
 from ..utils.misc import (maybe_convert_to_dataset_name,
                            trainer_spelling_variants)
 
+def _trainer_modules():
+    from ..training import distill as _d
+    from ..training import trainer as _t
+    from ..training import trainer_variants as _v
+    return _t, _d, _v
+
+
+def _ported_trainer_names():
+    """The public trainer classes of the port, by name."""
+    return sorted({n for mod in _trainer_modules()
+                   for n, c in vars(mod).items()
+                   if isinstance(c, type) and issubclass(c, NNUNetTrainer)
+                   and not n.startswith("_")})
+
+
 def find_trainer_class(name: str):
     """A trainer class of the port by name, in this framework's spelling or
     the reference's."""
-    from ..training import distill as _d
-    from ..training import trainer as _t
     for cand in trainer_spelling_variants(name):
-        for mod in (_t, _d):
+        for mod in _trainer_modules():
             if isinstance(getattr(mod, cand, None), type) and \
                     issubclass(getattr(mod, cand), NNUNetTrainer):
                 return getattr(mod, cand)
     raise NotImplementedError(
-        f"trainer {name!r} is not ported (ported: NNUNetTrainer, "
-        "NNUNetDistillationTrainer)")
+        f"trainer {name!r} is not ported (ported: "
+        f"{', '.join(_ported_trainer_names())})")
 
 
 def get_trainer_from_args(dataset_name_or_id, configuration: str, fold,

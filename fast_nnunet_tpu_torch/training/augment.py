@@ -8,7 +8,7 @@ low-res, gamma (inverted + plain), mirroring, mask-for-norm zeroing, -1
 label removal, region conversion and deep-supervision target downsampling,
 plus the initial-patch-size math. Runs in dataloader workers on the host;
 per sample, channels-first (C, *spatial) like the on-disk layout, which is
-also the port's NCDHW device layout. DA5 is not ported.
+also the port's NCDHW device layout. DA5 is in training/augment_da5.py.
 """
 import math
 from typing import List, Optional, Sequence, Tuple

@@ -2,10 +2,13 @@
 layout (fast_nnunet_tpu/training/checkpoint.py ``save_checkpoint``).
 
 A ``.fnnx`` file is a plain pickle of a dict: ``network_weights`` is the flax
-state dict ``{"params": {...}}`` of numpy arrays, ``optimizer_state`` flax's
-``to_state_dict`` of the optax chain state (for ``nnunet_sgd``:
+state dict ``{"params": {...}}`` of numpy arrays (plus ``"batch_stats"`` for
+a BatchNorm network), ``optimizer_state`` flax's ``to_state_dict`` of the
+optax chain state, one entry per link of the chain (for ``nnunet_sgd``:
 ``{"0": {}, "1": {}, "2": {"trace": <flax-shaped momentum tree>},
-"3": {"count": int32}}``, one ``{}`` per stateless link), then
+"3": {"count": int32}}``, one ``{}`` per stateless link; Adam links hold
+``{count, mu, nu}``, Adan links ``{m, v, n, g, t}``, nested chains nest),
+then
 ``current_epoch``, ``logging``, ``_best_ema``, ``init_args``,
 ``trainer_name``, ``inference_allowed_mirroring_axes`` and extras such as
 ``train_step``. No template network is needed to read it, and each package
@@ -65,7 +68,7 @@ def save_checkpoint(fname: str, *, network_weights: dict,
                     extras: Optional[dict] = None) -> None:
     """Write a pickle ``.fnnx`` with the JAX package's keys; the trees are
     flax-shaped nested dicts of numpy arrays (``models.unet.params_to_jax``,
-    :func:`sgd_state_to_jax`)."""
+    :func:`optimizer_state_to_jax`)."""
     ckpt = {
         "network_weights": network_weights,
         "optimizer_state": optimizer_state,
@@ -83,47 +86,67 @@ def save_checkpoint(fname: str, *, network_weights: dict,
         pickle.dump(ckpt, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def _sgd_links(optimizer) -> tuple:
-    """Chain positions of (momentum trace, schedule count) in the optax
-    chain ``nnunet_sgd`` builds with the same options."""
-    group = optimizer.inner.param_groups[0]
-    i = int(optimizer.grad_clip is not None) + int(bool(group["weight_decay"]))
-    return i, i + 1
+# optax state of one link <-> the torch optimizer's per-parameter state
+_TREES = {"trace": {"trace": "momentum_buffer"},
+          "adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+          "adan": {"m": "m", "v": "v", "n": "n", "g": "g"}}
+_COUNTS = {"adam": "count", "adan": "t", "count": "count"}
 
 
-def sgd_state_to_jax(optimizer, net) -> dict:
-    """``optimizer`` (training/optimizers.py ``nnunet_sgd``) as the state
-    dict of the JAX package's optax chain; the momentum buffers of ``net``'s
-    parameters become the flax-shaped trace (zeros before the first step)."""
+def optimizer_state_to_jax(optimizer, net) -> dict:
+    """``optimizer`` (a training/optimizers.py ``ChainedOptimizer``) as the
+    state dict of the JAX package's optax chain with the same options,
+    following ``optimizer.layout``; the per-parameter buffers of ``net``'s
+    parameters become flax-shaped trees (zeros before the first step)."""
     from ..models.unet import tree_to_jax
-    if not isinstance(optimizer.inner, torch.optim.SGD):
-        raise NotImplementedError("only the SGD optimizer state is written "
-                                  "in the optax layout")
     state = optimizer.inner.state
+    count = np.asarray(optimizer.count, np.int32)
 
-    def momentum(p):
-        buf = state.get(p, {}).get("momentum_buffer")
+    def buffer(p, name):
+        buf = state.get(p, {}).get(name)
         return torch.zeros_like(p) if buf is None else buf
 
-    i_trace, i_count = _sgd_links(optimizer)
-    out = {str(i): {} for i in range(i_trace)}
-    out[str(i_trace)] = {"trace": tree_to_jax(net, momentum)}
-    out[str(i_count)] = {"count": np.asarray(optimizer.count, np.int32)}
-    return out
+    def link(kind):
+        if isinstance(kind, list):
+            return {str(i): link(k) for i, k in enumerate(kind)}
+        out = {}
+        for key, name in _TREES.get(kind, {}).items():
+            out[key] = tree_to_jax(net, lambda p, _n=name: buffer(p, _n))
+        if kind in _COUNTS:
+            out[_COUNTS[kind]] = count
+        return out
+
+    return link(optimizer.layout)
 
 
-def sgd_state_from_jax(optimizer, net, state_dict: dict) -> None:
-    """Load an optax SGD chain state dict (as :func:`sgd_state_to_jax`
-    writes it, or the JAX trainer) into ``optimizer``: the momentum buffers
-    and the step count."""
+def optimizer_state_from_jax(optimizer, net, state_dict: dict) -> None:
+    """Load an optax chain state dict (as :func:`optimizer_state_to_jax`
+    writes it, or the JAX trainer) into ``optimizer``: its per-parameter
+    buffers and the step count."""
     from ..models.unet import from_flax_layout, jax_param_paths, tree_get
-    i_trace, i_count = _sgd_links(optimizer)
-    trace = state_dict[str(i_trace)]["trace"]
-    for path, p, kind in jax_param_paths(net):
-        w = from_flax_layout(kind, tree_get(trace, path))
-        if tuple(w.shape) != tuple(p.shape):
-            raise ValueError(f"{'/'.join(path)}: momentum shape {w.shape} "
-                             f"!= parameter shape {tuple(p.shape)}")
-        optimizer.inner.state[p]["momentum_buffer"] = torch.tensor(
-            np.asarray(w, np.float32), device=p.device, dtype=p.dtype)
-    optimizer.count = int(state_dict[str(i_count)]["count"])
+    items = [it for it in jax_param_paths(net) if it[0][0] == "params"]
+    state = optimizer.inner.state
+
+    def link(kind, sd):
+        if isinstance(kind, list):
+            for i, k in enumerate(kind):
+                link(k, sd[str(i)])
+            return
+        for key, buf in _TREES.get(kind, {}).items():
+            for path, p, lk in items:
+                w = from_flax_layout(lk, tree_get(sd[key], path))
+                if tuple(w.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"{'/'.join(path)}: {key} shape {w.shape} != "
+                        f"parameter shape {tuple(p.shape)}")
+                state[p][buf] = torch.tensor(
+                    np.asarray(w, np.float32), device=p.device, dtype=p.dtype)
+        if kind in _COUNTS:
+            optimizer.count = int(sd[_COUNTS[kind]])
+        if kind == "adam":      # torch's Adam counts per parameter
+            for _, p, _ in items:
+                state[p]["step"] = torch.tensor(float(optimizer.count))
+        elif kind == "adan":
+            optimizer.inner.t = optimizer.count
+
+    link(optimizer.layout, state_dict)

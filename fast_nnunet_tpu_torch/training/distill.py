@@ -12,8 +12,11 @@ one), and optional rotation of the student's training fold.
 Teachers are inference-form networks (conv weights in the compute dtype,
 which is what the JAX apply casts its float32 parameters to) with the
 one-pass InstanceNorm, so every teacher norm at >= 4096 voxels runs kernel A
-too; they run under ``torch.no_grad()``. The DA5 and residual-encoder
-distillation entries are not ported.
+too; they run under ``torch.no_grad()`` in evaluation mode. Teachers and
+students are either U-Net: a residual-encoder teacher (ResEnc plans)
+distils into a LiteResEncStudent, its block counts mapped by
+``block_reduction_strategy``. ``NNUNetDistillationTrainerDA5`` trains the
+student under the DA5 augmentation.
 """
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -21,11 +24,11 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..core.plans import PlansManager
-from ..models.factory import (build_network_from_arch_dict,
-                              get_network_from_plans)
-from ..models.students import build_student_arch_kwargs
+from ..models.factory import build_network_from_arch_dict, with_batch_norm
+from ..models.students import build_lite_student
 from ..models.unet import params_from_jax, params_from_jax_partial
 from ..utils.io import isfile, join, load_json, subdirs
+from .augment_da5 import DA5TrainingAugmenter
 from .checkpoint import load_checkpoint as load_ckpt_file
 from .train_step import ds_weights, forward_loss, make_loss_fn, timed_phase
 from .trainer import NNUNetTrainer
@@ -123,13 +126,11 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
     # ------------------------------------------------------------------ student
     def build_network_architecture(self):
         arch = self.configuration_manager.configuration["architecture"]
-        student_kwargs = build_student_arch_kwargs(
-            arch["arch_kwargs"], self.feature_reduction_factor,
-            self.block_reduction_strategy)
-        return get_network_from_plans(
-            arch["network_class_name"], student_kwargs, (),
+        return build_lite_student(
+            arch["network_class_name"], arch["arch_kwargs"],
             self.num_input_channels,
             self.label_manager.num_segmentation_heads,
+            self.feature_reduction_factor, self.block_reduction_strategy,
             compute_dtype=self.compute_dtype, remat=self._use_remat(),
             norm_onepass=True, trainable=True)
 
@@ -153,11 +154,13 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
                         f"No teacher checkpoint for fold {f} in "
                         f"{self.teacher_model_folder}")
                 ckpt_path = alt
+            weights = load_ckpt_file(ckpt_path)["network_weights"]
             net = build_network_from_arch_dict(
-                arch, self.num_input_channels,
+                with_batch_norm(arch) if "batch_stats" in weights else arch,
+                self.num_input_channels,
                 self.label_manager.num_segmentation_heads,
                 compute_dtype=self.compute_dtype, norm_onepass=True)
-            params_from_jax(net, load_ckpt_file(ckpt_path)["network_weights"])
+            params_from_jax(net, weights)
             self.teachers.append(net.to(self.device).eval())
         self.print_to_log_file(
             f"Loaded {len(self.teachers)} frozen teacher fold(s) "
@@ -295,3 +298,18 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
             f"Partial checkpoint load: {n_loaded}/{n_total} tensors matched "
             f"({100.0 * n_loaded / max(n_total, 1):.1f}%)")
         return n_loaded, n_total
+
+
+class NNUNetDistillationTrainerDA5(NNUNetDistillationTrainer):
+    """Distillation with the DA5 strong augmentation for small datasets
+    (training/augment_da5.py; the default geometry envelope, as in the JAX
+    trainer)."""
+
+    def _make_training_transform(self, patch_size, rotation, mirror_axes,
+                                 dummy_2d, lm, ds_scales):
+        return DA5TrainingAugmenter(
+            patch_size, rotation, mirror_axes,
+            use_mask_for_norm=self.configuration_manager.use_mask_for_norm,
+            dummy_2d=dummy_2d,
+            regions=lm.foreground_regions if lm.has_regions else None,
+            ignore_label=lm.ignore_label, ds_scales=ds_scales)

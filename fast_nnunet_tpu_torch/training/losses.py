@@ -8,7 +8,8 @@ JAX module: MemoryEfficientSoftDiceLoss (per-class sums from a scatter-add
 over the labelmap, no one-hot target), RobustCrossEntropyLoss / TopKLoss,
 DC_and_CE_loss / DC_and_BCE_loss with the ignore-label masking, and the
 deep-supervision weights 1/2^i with the lowest resolution's weight zeroed,
-normalised to sum 1.
+normalised to sum 1. :func:`loss_of_kind` gives the loss variants of the
+trainer variants (JAX trainer_variants.py:116-178).
 """
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -185,6 +186,45 @@ def dc_and_bce_loss(logits: Tensor, target_regions: Tensor, *,
                         batch_dice=batch_dice, do_bg=True, smooth=smooth)
     ce = binary_cross_entropy_with_logits(logits, target, loss_mask=mask)
     return weight_ce * ce + weight_dice * dc
+
+
+LOSS_KINDS = ("ce", "dice", "topk10", "topk10_ls01", "dc_topk10",
+              "dc_ce_nosmooth")
+
+
+def loss_of_kind(kind: str, *, batch_dice: bool,
+                 ignore_label: Optional[int] = None) -> Callable:
+    """(logits, label target) -> scalar for a trainer variant's loss kind
+    (:data:`LOSS_KINDS`), as the JAX ``_LossOverrideTrainer`` builds it;
+    ``ignore_label`` is the label manager's ignore label when the dataset
+    has one, else None."""
+    ignore = ignore_label
+    if kind == "ce":
+        return lambda lg, t: robust_cross_entropy(lg, t, ignore_index=ignore)
+    if kind == "dice":
+        def dice(lg, t):
+            if ignore is None:
+                return soft_dice_loss(lg, t, batch_dice=batch_dice,
+                                      do_bg=False)
+            mask = t != ignore
+            return soft_dice_loss(lg, torch.where(mask, t, torch.zeros_like(
+                t)), loss_mask=mask, batch_dice=batch_dice, do_bg=False)
+        return dice
+    if kind == "topk10":
+        return lambda lg, t: topk_cross_entropy(lg, t, 10.0,
+                                                ignore_index=ignore)
+    if kind == "topk10_ls01":
+        return lambda lg, t: topk_cross_entropy(lg, t, 10.0,
+                                                ignore_index=ignore,
+                                                label_smoothing=0.1)
+    if kind == "dc_topk10":
+        return lambda lg, t: (
+            soft_dice_loss(lg, t, batch_dice=batch_dice, do_bg=False)
+            + topk_cross_entropy(lg, t, 10.0, ignore_index=ignore))
+    if kind == "dc_ce_nosmooth":
+        return lambda lg, t: dc_and_ce_loss(lg, t, batch_dice=batch_dice,
+                                            ignore_label=ignore, smooth=0.0)
+    raise ValueError(f"unknown loss kind {kind!r} (one of {LOSS_KINDS})")
 
 
 # ---------------------------------------------------------------- deep supervision

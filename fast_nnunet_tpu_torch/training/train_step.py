@@ -49,13 +49,20 @@ def forward_loss(network, loss_fn, weights, data: torch.Tensor,
 def make_train_step(network, optimizer, *, has_regions: bool = False,
                     has_ignore: bool = False, ignore_label: Optional[int] = None,
                     batch_dice: bool = False, n_ds_levels: int = 1,
+                    loss_fn: Optional[Callable] = None,
                     timer=None) -> Callable:
     """Returns step(data, targets) -> loss (a detached device scalar): one
-    forward, backward and optimizer update of ``network`` in place.
-    ``step.timer`` (an engine ``PhaseTimer``, or None; settable later)
-    brackets the phases "forward_loss", "backward" and "optimizer"."""
-    loss_fn = make_loss_fn(has_regions=has_regions, has_ignore=has_ignore,
-                           ignore_label=ignore_label, batch_dice=batch_dice)
+    forward (the network in training mode: a BatchNorm takes the batch's
+    statistics and moves its running averages once), backward and
+    optimizer update of ``network`` in place. ``loss_fn`` (logits, target)
+    -> scalar replaces the default loss of :func:`make_loss_fn` (a trainer
+    variant's loss kind). ``step.timer`` (an engine ``PhaseTimer``, or
+    None; settable later) brackets the phases "forward_loss", "backward"
+    and "optimizer"."""
+    if loss_fn is None:
+        loss_fn = make_loss_fn(has_regions=has_regions, has_ignore=has_ignore,
+                               ignore_label=ignore_label,
+                               batch_dice=batch_dice)
     weights = ds_weights(n_ds_levels)
 
     def step(data: torch.Tensor, targets: Sequence[torch.Tensor]
@@ -79,7 +86,8 @@ def make_val_step(network, *, num_heads: int, has_regions: bool = False,
                   batch_dice: bool = False, n_ds_levels: int = 1) -> Callable:
     """Returns step(data, targets) -> (loss, tp, fp, fn): the tp/fp/fn are
     per-foreground-class sums of the highest-resolution output for the
-    online pseudo-Dice (background dropped for labels)."""
+    online pseudo-Dice (background dropped for labels). The network runs in
+    evaluation mode (a BatchNorm normalises with its running averages)."""
     loss_fn = make_loss_fn(has_regions=has_regions, has_ignore=has_ignore,
                            ignore_label=ignore_label, batch_dice=batch_dice)
     weights = ds_weights(n_ds_levels)

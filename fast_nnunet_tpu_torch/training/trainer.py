@@ -14,10 +14,16 @@ pseudo-Dice model selection. ``FNNT_ITERS_PER_EPOCH``,
 ``FNNT_VAL_ITERS_PER_EPOCH`` and ``FNNT_NUM_EPOCHS`` override the counts,
 ``FNN_REMAT`` the remat rule.
 
-Checkpoints are the JAX package's pickle ``.fnnx`` (flax-shaped weights and
-optax-shaped SGD state, momentum included), so either package resumes the
-other's. Not ported (``NotImplementedError``): cascaded configurations,
-multi-GPU and multi-host training.
+Checkpoints are the JAX package's pickle ``.fnnx`` (flax-shaped weights, a
+BatchNorm network's running averages, and the optax-shaped optimizer state:
+SGD momentum, Adam and Adan moments), so either package resumes the other's.
+Trainer variants (training/trainer_variants.py) override
+``build_network_architecture``, ``configure_optimizer``,
+``_configure_rotation_dummyDA_mirroring_and_initial_patch_size``,
+``_make_training_transform`` and the class attribute ``loss_kind``
+(training/losses.py ``loss_of_kind``; "dc_ce" is the default loss). Not
+ported (``NotImplementedError``): cascaded configurations, multi-GPU and
+multi-host training.
 """
 import os
 import sys
@@ -39,16 +45,22 @@ from ..utils.misc import generate_crossval_split
 from .augment import (TrainingAugmenter, ValidationAugmenter,
                       configure_rotation_dummyDA_mirroring_and_initial_patch_size)
 from .checkpoint import load_checkpoint as load_ckpt_file
-from .checkpoint import save_checkpoint, sgd_state_from_jax, sgd_state_to_jax
+from .checkpoint import (optimizer_state_from_jax, optimizer_state_to_jax,
+                         save_checkpoint)
 from .dataloader import AsyncBatchIterator, PatchSampler
 from .dataset import infer_dataset_class
 from .logger import NNUNetLogger
+from .losses import loss_of_kind
 from .optimizers import nnunet_sgd
 from .schedules import poly_lr
 from .train_step import make_train_step, make_val_step, timed_phase
 
 
 class NNUNetTrainer:
+    #: the training loss: "dc_ce" (DC + CE, or DC + BCE for regions) or a
+    #: kind of training/losses.py ``loss_of_kind``
+    loss_kind = "dc_ce"
+
     def __init__(self, plans: Union[dict, str], configuration: str, fold,
                  dataset_json: dict, device=None):
         self.device = resolve_device(device)
@@ -156,6 +168,7 @@ class NNUNetTrainer:
         self.optimizer = self.configure_optimizer(total_steps)
         step_kwargs = self._step_kwargs()
         self.train_step = make_train_step(self.network, self.optimizer,
+                                          loss_fn=self._train_loss_fn(),
                                           **step_kwargs)
         self.val_step = make_val_step(
             self.network, num_heads=self.label_manager.num_segmentation_heads,
@@ -168,6 +181,16 @@ class NNUNetTrainer:
                     ignore_label=self.label_manager.ignore_label,
                     batch_dice=self.configuration_manager.batch_dice,
                     n_ds_levels=self._n_ds_levels())
+
+    def _train_loss_fn(self):
+        """None for the default loss, else the variant's ``loss_kind`` (the
+        validation step keeps the default, as in the JAX trainers)."""
+        if self.loss_kind == "dc_ce":
+            return None
+        lm = self.label_manager
+        return loss_of_kind(
+            self.loss_kind, batch_dice=self.configuration_manager.batch_dice,
+            ignore_label=lm.ignore_label if lm.has_ignore_label else None)
 
     def build_network_architecture(self):
         """The training form: float32 master parameters, one-pass
@@ -216,10 +239,17 @@ class NNUNetTrainer:
         tr = [keys[i] for i in idx]
         return tr, [k for k in keys if k not in set(tr)]
 
+    def _configure_rotation_dummyDA_mirroring_and_initial_patch_size(
+            self, patch_size):
+        """The DA geometry envelope (rotation, dummy 2D, initial patch,
+        mirror axes); DA5 widens the initial patch's scale range."""
+        return configure_rotation_dummyDA_mirroring_and_initial_patch_size(
+            patch_size)
+
     def get_dataloaders(self):
         patch_size = self.configuration_manager.patch_size
         rotation, dummy_2d, initial_patch, mirror_axes = \
-            configure_rotation_dummyDA_mirroring_and_initial_patch_size(
+            self._configure_rotation_dummyDA_mirroring_and_initial_patch_size(
                 patch_size)
         self.inference_allowed_mirroring_axes = mirror_axes
         ds_scales = self._get_deep_supervision_scales()
@@ -417,7 +447,8 @@ class NNUNetTrainer:
         save_checkpoint(
             filename,
             network_weights=params_to_jax(self.network),
-            optimizer_state=sgd_state_to_jax(self.optimizer, self.network),
+            optimizer_state=optimizer_state_to_jax(self.optimizer,
+                                                   self.network),
             current_epoch=self.current_epoch,
             logging=self.logger.get_checkpoint(),
             best_ema=self._best_ema,
@@ -429,7 +460,8 @@ class NNUNetTrainer:
 
     def load_checkpoint(self, filename_or_checkpoint: Union[str, dict]
                         ) -> None:
-        """Resume: weights, SGD momentum and step count, epoch, logs."""
+        """Resume: weights (and running averages), the optimizer's state
+        and step count, epoch, logs."""
         if not self.was_initialized:
             self.initialize()
         ckpt = filename_or_checkpoint
@@ -437,8 +469,8 @@ class NNUNetTrainer:
             ckpt = load_ckpt_file(ckpt)
         params_from_jax(self.network, ckpt["network_weights"])
         if ckpt.get("optimizer_state") is not None:
-            sgd_state_from_jax(self.optimizer, self.network,
-                               ckpt["optimizer_state"])
+            optimizer_state_from_jax(self.optimizer, self.network,
+                                     ckpt["optimizer_state"])
         self.optimizer.count = int(ckpt.get("train_step",
                                             self.optimizer.count))
         self.current_epoch = ckpt.get("current_epoch", 0)

@@ -440,6 +440,28 @@ def test_training_norms_launch_kernel_a(cuda_device, remat):
                if p.grad is not None)
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_resenc_training_norms_launch_kernel_a(cuda_device, remat):
+    """A residual-encoder training network on the card: the stem, every
+    residual block (skip norms included) and decoder norm at >= 4096 voxels
+    launch kernel A; under remat each block and decoder stack launches it
+    again in the backward, the stem does not."""
+    resenc = dict(ARCH, kernel_sizes=[[1, 3, 3], [3, 3, 3], [3, 3, 3]],
+                  n_blocks_per_stage=[1, 2, 2], n_conv_per_stage_decoder=[1, 1])
+    net = get_network_from_plans("ResidualEncoderUNet", resenc, (), 1, K,
+                                 compute_dtype=torch.bfloat16,
+                                 norm_onepass=True, remat=remat,
+                                 trainable=True).to(cuda_device)
+    x = torch.randn(2, 1, 32, 32, 32, device=cuda_device)
+    n0 = spatial_sum_sumsq.launches
+    out = net(x, deep_supervision=True)
+    # 32^3: stem + stage 0's block (2); 16^3: stage 1's blocks (3 + 2);
+    # both decoder stacks (1 + 1); 8^3 is under the gate
+    assert spatial_sum_sumsq.launches - n0 == 10
+    sum(o.float().mean() for o in out).backward()
+    assert spatial_sum_sumsq.launches - n0 == (19 if remat else 10)
+
+
 def test_train_step_cuda_matches_cpu(cuda_device):
     """Three SGD steps of a small training network, fp32 with TF32 off and
     deterministic cuDNN, on the card (kernel A) and on the CPU (plain

@@ -10,7 +10,9 @@ import torch
 
 from fast_nnunet_tpu.models.factory import get_network_from_plans as jax_net
 from fast_nnunet_tpu_torch.models import factory as port_factory
+from fast_nnunet_tpu_torch.models.blocks import BatchStatsNorm
 from fast_nnunet_tpu_torch.models.unet import (PlainConvUNet,
+                                               ResidualEncoderUNet,
                                                params_from_jax, restore)
 
 from .torch_port_common import (ARCH, GOLDEN, K,  # noqa: F401  (fixture)
@@ -88,16 +90,21 @@ def test_factory_resolves_reference_names_and_raises_for_the_rest():
         assert net.decoder.mods["seg_head_1"].weight.dtype == torch.bfloat16
         assert net.encoder.stages["stage_0"].blocks["block_0"].norm.weight \
             .dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        port_factory.get_network_from_plans("ResidualEncoderUNet", kw, (), 1, 3)
+    for name in ("ResidualEncoderUNet", "LiteResEncStudent"):
+        assert isinstance(port_factory.get_network_from_plans(
+            name, kw, (), 1, 3), ResidualEncoderUNet)
     with pytest.raises(NotImplementedError):
         port_factory.get_network_from_plans(
             "PlainConvUNet", dict(kw, conv_op="torch.nn.Conv2d",
                                   kernel_sizes=[[3, 3]] * 3,
                                   strides=[[1, 1]] + [[2, 2]] * 2), (), 1, 3)
-    with pytest.raises(NotImplementedError):
+    bn = port_factory.get_network_from_plans(
+        "PlainConvUNet", dict(kw, norm_op="torch.nn.BatchNorm3d"), (), 1, 3)
+    assert isinstance(bn.encoder.stages["stage_0"].blocks["block_0"].norm,
+                      BatchStatsNorm)
+    with pytest.raises(ValueError):
         port_factory.get_network_from_plans(
-            "PlainConvUNet", dict(kw, norm_op="torch.nn.BatchNorm3d"), (), 1, 3)
+            "PlainConvUNet", dict(kw, norm_op="torch.nn.GroupNorm"), (), 1, 3)
     with pytest.raises(ValueError):
         port_factory.get_network_from_plans("UNetPlusPlus", kw, (), 1, 3)
 

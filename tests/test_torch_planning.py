@@ -140,6 +140,18 @@ def test_chip_smoke_frozen_topology_is_the_planners(pipeline_env):
     assert "3d_lowres" not in pp["configurations"]
 
 
+def test_chip_smoke_frozen_resenc_l_topology_is_the_planners(pipeline_env):
+    """chip_smoke.PIPELINE_RESENC_L (phase 12) is what both packages'
+    nnUNetPlannerResEncL give for the smoke run's raw dataset; the whole
+    plans are equal too."""
+    pp, jp, pt, jt = _plan_both(pipeline_env, "nnUNetPlannerResEncL")
+    assert pp == jp and pt == jt
+    assert pp["plans_name"] == chip_smoke.RESENC_PLANS
+    assert chip_smoke.plan_topology(pp["configurations"]["3d_fullres"],
+                                    chip_smoke.RESENC_KEYS) \
+        == chip_smoke.PIPELINE_RESENC_L
+
+
 @pytest.mark.parametrize("planner", ["ResEncUNetPlanner",
                                      "nnUNetPlannerResEncM",
                                      "nnUNetPlannerResEncL",

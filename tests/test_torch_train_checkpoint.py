@@ -51,7 +51,8 @@ def _port(tree, grad_clip=12.0, weight_decay=3e-5):
 def _save_port(fname, net, opt):
     pckpt.save_checkpoint(
         fname, network_weights=params_to_jax(net),
-        optimizer_state=pckpt.sgd_state_to_jax(opt, net), current_epoch=3,
+        optimizer_state=pckpt.optimizer_state_to_jax(opt, net),
+        current_epoch=3,
         logging={"train_losses": [1.0, 0.5]}, best_ema=0.25,
         init_args={"fold": 0}, inference_allowed_mirroring_axes=(0, 1, 2),
         extras={"train_step": opt.count})
@@ -120,7 +121,7 @@ def test_port_resumes_jax_checkpoint(tmp_path):
     net, opt, step = _port(plain_params(0))
     ckpt = pckpt.load_checkpoint(fname)
     params_from_jax(net, ckpt["network_weights"])
-    pckpt.sgd_state_from_jax(opt, net, ckpt["optimizer_state"])
+    pckpt.optimizer_state_from_jax(opt, net, ckpt["optimizer_state"])
     assert opt.count == 2
     _assert_tree_equal(params_to_jax(net), state.params)
     _assert_tree_equal(tree_to_jax(net, lambda p: opt.inner.state[p][
@@ -151,7 +152,7 @@ def test_resumed_step_equals_uninterrupted(tmp_path):
     net_c, opt_c, step_c = _port(plain_params(4))
     ckpt = pckpt.load_checkpoint(fname)
     params_from_jax(net_c, ckpt["network_weights"])
-    pckpt.sgd_state_from_jax(opt_c, net_c, ckpt["optimizer_state"])
+    pckpt.optimizer_state_from_jax(opt_c, net_c, ckpt["optimizer_state"])
     step_c(*_batch(22)[2:])
     assert opt_c.count == opt_a.count == 3
     for a, c in zip(net_a.parameters(), net_c.parameters()):
@@ -162,7 +163,7 @@ def test_fresh_optimizer_writes_zero_trace(tmp_path):
     """Before the first step the momentum is written as zeros (optax's
     initial trace), with count 0."""
     net, opt, _ = _port(plain_params(5))
-    state = pckpt.sgd_state_to_jax(opt, net)
+    state = pckpt.optimizer_state_to_jax(opt, net)
     assert set(state) == {"0", "1", "2", "3"} and state["0"] == {}
     assert int(state["3"]["count"]) == 0
     assert all(float(np.abs(v).max()) == 0

@@ -236,8 +236,10 @@ def test_entry_points_default_to_the_card(env, short):
     assert find_trainer_class("nnUNetTrainer") is NNUNetTrainer
     assert find_trainer_class("nnUNetDistillationTrainer") is \
         NNUNetDistillationTrainer
+    assert find_trainer_class("nnUNetTrainerDA5").__name__ == \
+        "NNUNetTrainerDA5"
     with pytest.raises(NotImplementedError):
-        find_trainer_class("nnUNetTrainerDA5")
+        find_trainer_class("nnUNetTrainerDoesNotExist")
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the default is taken")
     from fast_nnunet_tpu_torch.run.distillation_train import \
@@ -253,6 +255,10 @@ def test_entry_points_default_to_the_card(env, short):
         run_training_entry([DS, "3d_fullres", "0"])
     with pytest.raises(RuntimeError, match="cuda"):
         run_distillation_training(DS, teacher_folder=pre, teacher_folds=[0])
+    from fast_nnunet_tpu_torch.run.distillation_train import \
+        resenc_distillation_train_entry
+    with pytest.raises(RuntimeError, match="cuda"):
+        resenc_distillation_train_entry(["-d", DS, "-t", pre, "-tf", "0"])
     with pytest.raises(NotImplementedError):
         run_training_entry([DS, "3d_fullres", "0", "-device", "cpu",
                             "-num_gpus", "2"])

@@ -6,7 +6,11 @@ fed by the dataloader and on one cached device batch, each over a short
 ``torch.profiler`` window after warm-up. Run from the repository root on a
 machine with an NVIDIA GPU:
 
-    python3 tools/profile_train_step.py [--steps 6] [--trace DIR]
+    python3 tools/profile_train_step.py [--steps 6] [--trace DIR] [--resenc]
+
+``--resenc`` profiles chip_smoke.py's phase-12 teacher instead: nnU-Net's
+ResEnc L preset as planned there (PIPELINE_RESENC_L: ResidualEncoderUNet,
+blocks 1/3/4/6/6/6, patch 160^3, batch 2), on the same synthetic cases.
 
 Prints, per mode: host ms per step without and with the profiler, the
 device's busy time per step (the union of the kernels' intervals on the
@@ -113,11 +117,26 @@ def profile(torch, run_step, steps, trace_path):
             "top_kernels_ms_per_step": [(n[:120], ms) for n, ms in top]}
 
 
+def resenc_l(cs) -> dict:
+    """write_train_dataset's arguments for chip_smoke.PIPELINE_RESENC_L."""
+    t = cs.PIPELINE_RESENC_L
+    kw = {k: t[k] for k in ("n_stages", "features_per_stage", "kernel_sizes",
+                            "strides", "n_blocks_per_stage",
+                            "n_conv_per_stage_decoder")}
+    arch = dict(cs.TRAIN_ARCH, network_class_name=cs.TRAIN_ARCH[
+        "network_class_name"].replace("PlainConvUNet", "ResidualEncoderUNet"),
+        arch_kwargs=dict(cs.TRAIN_ARCH["arch_kwargs"], **kw))
+    arch["arch_kwargs"].pop("n_conv_per_stage")
+    return {"arch": arch, "patch": t["patch_size"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--trace", default=None,
                     help="directory for one Chrome trace per mode")
+    ap.add_argument("--resenc", action="store_true",
+                    help="the ResEnc L teacher of chip_smoke.py phase 12")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -133,7 +152,8 @@ def main() -> int:
                       nnUNet_preprocessed=os.path.join(root, "preprocessed"),
                       nnUNet_results=os.path.join(root, "results"))
     try:
-        plans = cs.write_train_dataset(root)
+        plans = cs.write_train_dataset(root, **(
+            resenc_l(cs) if args.resenc else {}))
         dataset_json = load_json(os.path.join(
             root, "preprocessed", cs.TRAIN_DS, "dataset.json"))
         trainer = NNUNetTrainer(plans, "3d_fullres", 0, dataset_json)
