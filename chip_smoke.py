@@ -85,10 +85,12 @@ the card. Run from the repository root:
    takes in one step checked and timed into A's ``train_shapes``;
    ``fast_nnunet_find_best_configuration_torch 988 -c 3d_fullres -f 0``
    (summary Dice finite, postprocessing.json, the instructions);
-   ``fast_nnunet_predict_torch`` on imagesTs with ``--save_probabilities``,
-   with mirror TTA and with ``--disable_tta``; ``fast_nnunet_ensemble_torch``
-   of the two (the mask must equal the argmax of the mean of the two .npz,
-   recomputed with numpy); ``fast_nnunet_apply_postprocessing_torch`` (must
+   ``fast_nnunet_predict_torch`` on imagesTs with mirror TTA and
+   ``--save_probabilities``, and with ``--disable_tta`` (no probabilities:
+   a second 478 MB export costs ~38 s, PERF.md §4);
+   ``fast_nnunet_ensemble_torch`` of the TTA folder given twice (the mask
+   must equal the argmax of the mean of the .npz, recomputed with numpy);
+   ``fast_nnunet_apply_postprocessing_torch`` (must
    equal ``apply_postprocessing`` in memory); ``fast_nnunet_evaluate_simple
    _torch`` against the test label. One ``{"pipeline": ...}`` JSON line.
 12. nnU-Net's residual-encoder presets (``resenc:``), in phase 11's dataset
@@ -110,6 +112,33 @@ the card. Run from the repository root:
    student; a small ResEnc and a small BatchNorm (``NNUNetTrainerBN``'s
    network) train step cuda vs cpu as in 10; and ``--use_da5``
    distillation at small size on the card. One ``{"resenc": ...}`` line.
+13. nnU-Net's 2d and 3d_lowres -> 3d_cascade_fullres configurations
+   (``cascade:``), all through the port's entry points in this process:
+   5 training cases and 1 test case of (48, 512, 512) int16 CT at (2.5,
+   0.8, 0.8) mm (the serving workload's in-plane grid) with 61 labels;
+   ``fast_nnunet_plan_and_preprocess_torch -d 990 -c 2d 3d_fullres
+   3d_lowres`` (host seconds per step and per configuration), whose four
+   configurations must equal CASCADE_PLANS (the 2d: 512^2 patch, batch 10,
+   8 stages up to 512 features); ``fast_nnunet_train_torch 990 2d 0``,
+   ``... 3d_lowres all`` and ``... 3d_cascade_fullres 0``, each one epoch of
+   10 iterations, 2 validation iterations and the final validation (the 2d
+   one 2D-over-slices, the lowres one leaving 5 ``predicted_next_stage``
+   deposits on the 3d_fullres grid, the cascade one with the one-hot
+   previous-stage channels; its host seconds split into sliding window,
+   export, deposits and metrics): fed seconds per iteration, CUDA-event
+   phases (the cascade's ``data`` and ``h2d`` apart), peak memory, FLOPs and
+   ``mfu``, a finite and falling loss, kernel A launches per step against
+   the gate's count (the 2D networks' first 4-D calls), every (shape, dtype)
+   A takes in one step checked and timed into A's ``train_shapes``; the
+   cascade network takes 1 + 60 input channels;
+   ``fast_nnunet_predict_torch -c 2d --disable_tta``, ``-c 3d_lowres -f
+   all`` and ``-c 3d_cascade_fullres -prev_stage_predictions <lowres
+   output>`` on imagesTs (sliding window and export seconds apart; each
+   mask the image's shape and spacing, labels in 0..60), each evaluated
+   by ``fast_nnunet_evaluate_simple_torch`` (finite
+   Dice); a narrow 2D PlainConvUNet, a narrow 2D ResidualEncoderUNet and a
+   narrow cascade step with one-hot input, cuda vs cpu as in 10. One
+   ``{"cascade": ...}`` line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -189,6 +218,56 @@ PIPELINE_RESENC_L = {
     "n_blocks_per_stage": [1, 3, 4, 6, 6, 6],
     "n_conv_per_stage_decoder": [1, 1, 1, 1, 1],
 }
+
+
+# phase 13: nnU-Net's 2d and 3d_lowres -> 3d_cascade_fullres configurations,
+# on a raw CT dataset at the serving workload's in-plane grid (512 x 512 at
+# 0.8 mm) with 48 slices at 2.5 mm: the fewest at which the default planner
+# still writes a 3d_lowres (the host resampling of 61 classes at 512^2 costs
+# its time per slice); the four planned topologies, frozen like
+# PIPELINE_3D_FULLRES (tests/test_torch_planning.py holds them against the
+# JAX planner)
+CASCADE_DS_ID = 990
+CASCADE_DS = "Dataset990_CascadeCT"
+CASCADE_CASE = (48, 512, 512)
+CASCADE_SPACING = [2.5, 0.800000011920929, 0.800000011920929]  # 0.8 in f32,
+# as a NIfTI header stores it
+CASCADE_CONFIGS = ("2d", "3d_fullres", "3d_lowres", "3d_cascade_fullres")
+_CASCADE_FULLRES = {
+    "patch_size": [24, 256, 256], "batch_size": 2,
+    "spacing": CASCADE_SPACING, "normalization_schemes": ["CTNormalization"],
+    "n_stages": 7, "features_per_stage": [32, 64, 128, 256, 320, 320, 320],
+    "kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 6,
+    "strides": [[1, 1, 1], [1, 2, 2], [2, 2, 2], [2, 2, 2], [1, 2, 2],
+                [1, 2, 2], [1, 2, 2]],
+}
+CASCADE_PLANS = {
+    "2d": {
+        "patch_size": [512, 512], "batch_size": 10,
+        "spacing": CASCADE_SPACING[1:],
+        "normalization_schemes": ["CTNormalization"], "n_stages": 8,
+        "features_per_stage": [32, 64, 128, 256, 512, 512, 512, 512],
+        "kernel_sizes": [[3, 3]] * 8, "strides": [[1, 1]] + [[2, 2]] * 7},
+    "3d_fullres": _CASCADE_FULLRES,
+    "3d_lowres": {
+        "patch_size": [32, 224, 224], "batch_size": 2,
+        "spacing": [2.5, 1.1406087264733378, 1.1406087264733378],
+        "normalization_schemes": ["CTNormalization"], "n_stages": 6,
+        "features_per_stage": [32, 64, 128, 256, 320, 320],
+        "kernel_sizes": [[1, 3, 3]] + [[3, 3, 3]] * 5,
+        "strides": [[1, 1, 1], [1, 2, 2], [2, 2, 2], [2, 2, 2], [2, 2, 2],
+                    [1, 2, 2]]},
+    "3d_cascade_fullres": _CASCADE_FULLRES,
+}
+
+
+def cascade_topologies(plans: dict) -> dict:
+    """:func:`plan_topology` of each configuration of ``plans`` (inherited
+    keys resolved)."""
+    from fast_nnunet_tpu_torch.core.plans import PlansManager
+    pm = PlansManager(plans)
+    return {c: plan_topology(pm.get_configuration(c).configuration)
+            for c in plans["configurations"]}
 
 
 def plan_topology(configuration: dict, extra=()) -> dict:
@@ -461,9 +540,13 @@ def main() -> int:
     mark("small checks (phases 6, 10)")
 
     # ------------------------------------------- raw dataset -> evaluation
-    pipeline_path(torch, dev, next(r for r in rows
-                                   if r["name"] == "spatial_sum_sumsq"))
+    a_row = next(r for r in rows if r["name"] == "spatial_sum_sumsq")
+    pipeline_path(torch, dev, a_row)
     mark("raw dataset workflow and ResEnc presets (phases 11-12)")
+
+    # ------------------------------------------- 2d, lowres and the cascade
+    cascade_path(torch, dev, a_row)
+    mark("2d and 3d_lowres -> 3d_cascade_fullres (phase 13)")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1023,16 +1106,17 @@ def write_raw_ct_dataset(raw_root, dataset=PIPELINE_DS, shape=TRAIN_CASE,
 
 def conv_flops(torch, net, x):
     """(forward FLOPs, FLOPs of the convolutions inside checkpointed stacks)
-    of one forward of ``net`` on ``x``: 2 k^3 Cin Cout per output voxel of a
-    convolution, per input voxel of a transposed convolution."""
+    of one forward of ``net`` on ``x``: 2 k^d Cin Cout per output voxel of a
+    2D or 3D convolution, per input voxel of a transposed convolution."""
     from torch import nn
     from fast_nnunet_tpu_torch.models.unet import remat_modules
+    convs = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
     remat_convs = {id(m) for st in remat_modules(net)
-                   for m in st.modules() if isinstance(m, nn.Conv3d)}
+                   for m in st.modules() if isinstance(m, convs)}
     tot = {"all": 0, "remat": 0}
 
     def hook(mod, inp, out):
-        if isinstance(mod, nn.ConvTranspose3d):
+        if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
             f = 2 * mod.weight.numel() * inp[0].numel() // inp[0].shape[1]
         else:
             f = 2 * mod.weight.numel() * out.numel() // out.shape[1]
@@ -1041,7 +1125,7 @@ def conv_flops(torch, net, x):
             tot["remat"] += f
 
     hs = [m.register_forward_hook(hook) for m in net.modules()
-          if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d))]
+          if isinstance(m, convs)]
     try:
         with torch.no_grad():
             net(x, deep_supervision=True)
@@ -1118,15 +1202,15 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
     ``cap["a_calls"]`` (:func:`kernel_a_calls`); from iteration ``warm`` on
     the trainer and the step bracket their phases with ``timer``. The
     wrapped loop ends in a device sync (the epoch's loss mean), stamped
-    last; ``cap["peak_bytes"]`` is the peak device memory then. Returns the
-    original method."""
+    last; ``cap["peak_bytes"]`` is the peak device memory then and
+    ``cap["outs"]`` what each step returned. Returns the original method."""
     import torch
     from fast_nnunet_tpu_torch.ops import stats as ka
     orig = cls.run_train_iterations
 
     def timed(self, epoch):
         step = getattr(self, attr)
-        stamps, launches = [], []
+        stamps, launches, outs = [], [], []
 
         def stamped(*args):
             if timer is not None and len(stamps) == warm:
@@ -1140,6 +1224,7 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
             else:
                 out = step(*args)
             launches.append(ka.spatial_sum_sumsq.launches - n0)
+            outs.append(out)
             return out
 
         setattr(self, attr, stamped)
@@ -1150,7 +1235,7 @@ def stamp_iterations(cls, attr, cap, warm, timer=None):
             self.timer = step.timer = None
         stamps.append(time.perf_counter())
         cap.update(trainer=self, stamps=stamps, step_launches=launches,
-                   peak_bytes=torch.cuda.max_memory_allocated())
+                   outs=outs, peak_bytes=torch.cuda.max_memory_allocated())
 
     cls.run_train_iterations = timed
     return orig
@@ -1528,7 +1613,6 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
 
 
 def _pipeline(torch, dev, a_row, root, iters, warm):
-    import shutil
     import numpy as np
     from fast_nnunet_tpu_torch.ensembling.ensemble import ensemble_entry
     from fast_nnunet_tpu_torch.evaluation.find_best_configuration import \
@@ -1666,26 +1750,28 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
 
     # ---- fast_nnunet_predict_torch twice, ensemble, postprocess, evaluate
     model = join(results, ident)
+    # the second prediction exports no probabilities (cut for time), so the
+    # ensemble takes the TTA folder twice
     outs = []
     for tta in ([], ["--disable_tta"]):
         out = join(os.environ["nnUNet_results"], f"imagesTs_pred{len(tta)}")
         t0 = time.perf_counter()
         predict_entry_point(["-i", join(raw, "imagesTs"), "-o", out, "-d",
-                             ds, "-c", "3d_fullres", "-f", "0",
-                             "--save_probabilities"] + tta)
+                             ds, "-c", "3d_fullres", "-f", "0"] +
+                            (tta or ["--save_probabilities"]))
         host["predict_tta_s" if not tta else "predict_s"] = \
             time.perf_counter() - t0
-        for f in ("plans.json", "dataset.json"):  # what the ensemble reads
-            shutil.copy(join(model, f), join(out, f))
         outs.append(out)
+    case = f"case_{n:03d}"
+    mask = NiftiIO().read_seg(join(outs[1], case + ".nii.gz"))[0][0]
+    check(mask.shape == TRAIN_CASE, f"--disable_tta mask {mask.shape}")
     ens = join(os.environ["nnUNet_results"], "imagesTs_ensemble")
     t0 = time.perf_counter()
-    ensemble_entry(["-i", *outs, "-o", ens])
+    ensemble_entry(["-i", outs[0], outs[0], "-o", ens])
     host["ensemble_s"] = time.perf_counter() - t0
-    case = f"case_{n:03d}"
-    probs = [np.load(join(o, case + ".npz"))["probabilities"].astype(
-        np.float32) for o in outs]
-    expected = ((probs[0] + probs[1]) / 2).argmax(0)
+    probs = np.load(join(outs[0], case + ".npz"))["probabilities"].astype(
+        np.float32)
+    expected = ((probs + probs) / 2).argmax(0)
     del probs
     mask = NiftiIO().read_seg(join(ens, case + ".nii.gz"))[0][0]
     check(mask.shape == TRAIN_CASE and np.array_equal(mask, expected),
@@ -1705,7 +1791,8 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
         "Dice"]
     check(np.isfinite(test_dice), f"test Dice {test_dice}")
     print(f"pipeline: predict imagesTs {host['predict_tta_s']:.3f} s with "
-          f"mirror TTA, {host['predict_s']:.3f} s without; ensemble "
+          f"mirror TTA and probabilities, {host['predict_s']:.3f} s without "
+          f"either; ensemble of the TTA folder twice "
           f"{host['ensemble_s']:.3f} s, equal to the argmax of the mean "
           f"probabilities; postprocessed file equals apply_postprocessing; "
           f"test foreground Dice {test_dice:.4f} (seeded random start, "
@@ -2006,13 +2093,316 @@ def small_da5_distill(torch, iters=4):
             "distill_loss": dist}
 
 
+# ----------------------------------------------------------------- cascade
+SMALL_2D = dict(SMALL_ARCH, kernel_sizes=[[3, 3]] * 3,
+                strides=[[1, 1]] + [[2, 2]] * 2,
+                conv_op="torch.nn.modules.conv.Conv2d")
+SMALL_2D_RESENC = dict(SMALL_2D, n_blocks_per_stage=[1, 2, 2],
+                       n_conv_per_stage_decoder=[1, 1])
+
+
+def cascade_path(torch, dev, a_row, iters=10, warm=3):
+    """Phase 13 (``cascade:``): nnU-Net's 2d and 3d_lowres ->
+    3d_cascade_fullres configurations through the port's entry points, in
+    process (docstring step 13)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_cascade_")
+    env = {f"nnUNet_{k}": os.path.join(root, k)
+           for k in ("raw", "preprocessed", "results")}
+    old = {k: os.environ.get(k) for k in list(env) + [
+        "FNNT_ITERS_PER_EPOCH", "FNNT_VAL_ITERS_PER_EPOCH",
+        "FNNT_NUM_EPOCHS"]}
+    os.environ.update(env)
+    try:
+        _cascade(torch, dev, a_row, iters, warm)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _train_configuration(torch, dev, a_row, configuration, fold, iters,
+                         warm):
+    """``fast_nnunet_train_torch 990 CONFIGURATION FOLD`` (one epoch of
+    ``iters`` iterations, 2 validation iterations, the final validation)
+    with the iterations stamped and phased: prints and returns the
+    configuration's numbers, checks kernel A's launches per step against
+    the gate's count and a finite, falling loss, and puts A's calls of one
+    step into A's ``train_shapes``."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.evaluation import metrics
+    from fast_nnunet_tpu_torch.inference import export
+    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
+                                                        SlidingWindowEngine)
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.run.run_training import run_training_entry
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+
+    cap = {}
+    timer = PhaseTimer()
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm, timer)
+    torch.cuda.reset_peak_memory_stats()
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with host_seconds({
+                "validation": (NNUNetTrainer, "perform_actual_validation"),
+                "sliding_window": (SlidingWindowEngine, "_logits"),
+                "export": (export, "export_prediction_from_logits"),
+                "deposit": (export, "resample_and_save"),
+                "metrics": (metrics, "compute_metrics_on_folder")}) as spent:
+            run_training_entry([str(CASCADE_DS_ID), configuration,
+                                str(fold)])
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+    wall = time.perf_counter() - t0
+    val = {k: sum(v) for k, v in spent.items()}
+    val["cases"] = len(spent["export"])
+    run_launches = ka.spatial_sum_sumsq.launches
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    cm = trainer.configuration_manager
+    x1 = torch.zeros((1, trainer.num_input_channels, *cm.patch_size),
+                     device=dev)
+    n_gate, n_remat = gated_norms(torch, trainer.network, x1)
+    f_fwd, f_remat = conv_flops(torch, trainer.network, x1)
+    del x1
+    flops = cm.batch_size * (3 * f_fwd + f_remat)   # hooks: batch 1
+    predicted = n_gate + n_remat
+    losses = [float(v) for v in cap["outs"]]
+    tl = trainer.logger.logging
+    first = trainer.network.encoder.stages["stage_0"].blocks["block_0"].conv
+    out = {"fold": fold, "wall_s": wall, "fed_s_per_iter": fed,
+           "phases_ms": phases, "flops_per_step": flops,
+           "mfu_fed": flops / fed / BF16_TENSOR_OPS_PER_S,
+           "peak_gib_train": cap["peak_bytes"] / 2**30,
+           "remat": trainer._use_remat(), "input_channels": first.in_channels,
+           "kernel_a_launches_per_step": cap["step_launches"],
+           "kernel_a_predicted_per_step": predicted,
+           "kernel_a_run_launches": run_launches, "losses": losses,
+           "val_loss": tl["val_losses"][0], "final_validation_s": val}
+    kind = type(trainer.network).__name__
+    print(f"cascade: {configuration} fold {fold}: {kind} "
+          f"{trainer.network.dim}D, features "
+          f"{stage_features(trainer.network)}, {first.in_channels} input "
+          f"channels, {TRAIN_K} classes, patch {cm.patch_size}, batch "
+          f"{cm.batch_size}, remat {out['remat']!r}; fast_nnunet_train_torch"
+          f" ({iters} iterations, 2 validation iterations, final validation)"
+          f" {wall:.3f} s; fed seconds per iteration {fed:.4f} (iterations "
+          f"{warm}-{iters - 1}); FLOPs per step {flops:.4e}, mfu fed "
+          f"{out['mfu_fed']:.4f}; peak device memory "
+          f"{out['peak_gib_train']:.2f} GiB over the training iterations")
+    print(f"cascade: {configuration} final validation of {val['cases']} "
+          f"case(s), serial on the host clock: {val['validation']:.3f} s, of "
+          f"which sliding window {val['sliding_window']:.3f} s, export "
+          f"{val['export']:.3f} s, next-stage deposits {val['deposit']:.3f} "
+          f"s, metrics {val['metrics']:.3f} s")
+    print(f"cascade: {configuration} phase ms per fed iteration (CUDA "
+          f"events) " + json.dumps({k: round(v, 3)
+                                    for k, v in phases.items()}))
+    print(f"cascade: {configuration} kernel A launches per train step "
+          f"{cap['step_launches']} (predicted {predicted}: {n_gate} norms at "
+          f">= 4096 voxels per forward, {n_remat} recomputed by remat); "
+          f"{run_launches} in the whole run; losses "
+          f"{[round(v, 4) for v in losses]}, val loss {out['val_loss']:.4f}")
+    check(all(k == predicted for k in cap["step_launches"]),
+          f"{configuration}: kernel A launches per step "
+          f"{cap['step_launches']} != {predicted}")
+    check(predicted > 0, f"{configuration} launched no kernel A")
+    check(all(np.isfinite(losses)) and np.isfinite(out["val_loss"]),
+          f"{configuration}: non-finite losses {losses} {out['val_loss']}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"{configuration}: the loss did not fall: {losses}")
+    calls, step_launches = cap["a_calls"], cap["step_launches"][1]
+    trainer.network = None
+    del trainer
+    cap.clear()
+    torch.cuda.empty_cache()
+    kernel_a_step_shapes(torch, configuration, calls, step_launches, a_row)
+    return out
+
+
+def _cascade(torch, dev, a_row, iters, warm):
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.inference import predictor
+    from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
+    from fast_nnunet_tpu_torch.planning.fingerprint import \
+        DatasetFingerprintExtractor
+    from fast_nnunet_tpu_torch.planning.planner import ExperimentPlanner
+    from fast_nnunet_tpu_torch.preprocessing.preprocessor import \
+        DefaultPreprocessor
+    from fast_nnunet_tpu_torch.run.evaluate import evaluate_simple_entry
+    from fast_nnunet_tpu_torch.run.plan_and_preprocess import \
+        plan_and_preprocess_entry
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.utils.io import join, load_json, subfiles
+
+    t_phase = time.perf_counter()
+    ds, n, ident = CASCADE_DS, PIPELINE_N_TRAIN, str(CASCADE_DS_ID)
+    t0 = time.perf_counter()
+    raw = write_raw_ct_dataset(os.environ["nnUNet_raw"], dataset=ds,
+                               shape=CASCADE_CASE, spacing=CASCADE_SPACING)
+    host = {"write_raw_s": time.perf_counter() - t0}
+    print(f"cascade: raw dataset {ds}: {n} training cases and 1 test case "
+          f"{CASCADE_CASE} int16 at {CASCADE_SPACING} mm, {TRAIN_K} labels, "
+          f"written as .nii.gz in {host['write_raw_s']:.3f} s")
+
+    # ---- fast_nnunet_plan_and_preprocess_torch -c 2d 3d_fullres 3d_lowres
+    with host_seconds({
+            "fingerprint": (DatasetFingerprintExtractor, "run"),
+            "plan": (ExperimentPlanner, "plan_experiment"),
+            "preprocess": (DefaultPreprocessor, "run")}) as spent:
+        t0 = time.perf_counter()
+        plan_and_preprocess_entry(["-d", ident, "-c", "2d", "3d_fullres",
+                                   "3d_lowres"])
+        host["plan_and_preprocess_s"] = time.perf_counter() - t0
+    check([len(v) for v in spent.values()] == [1, 1, 3],
+          f"plan and preprocess ran {spent}")
+    host.update(fingerprint_s=spent["fingerprint"][0],
+                plan_s=spent["plan"][0])
+    for cfg, sec in zip(("2d", "3d_fullres", "3d_lowres"),
+                        spent["preprocess"]):
+        host[f"preprocess_{cfg}_s"] = sec
+    pre = join(os.environ["nnUNet_preprocessed"], ds)
+    plans = load_json(join(pre, "nnUNetPlans.json"))
+    topo = cascade_topologies(plans)
+    print(f"cascade: fast_nnunet_plan_and_preprocess_torch -c 2d 3d_fullres "
+          f"3d_lowres {host['plan_and_preprocess_s']:.3f} s: fingerprint "
+          f"{host['fingerprint_s']:.3f}, plan {host['plan_s']:.3f}, "
+          f"preprocess 2d {host['preprocess_2d_s']:.3f}, 3d_fullres "
+          f"{host['preprocess_3d_fullres_s']:.3f}, 3d_lowres "
+          f"{host['preprocess_3d_lowres_s']:.3f} s")
+    for cfg in CASCADE_CONFIGS:
+        print(f"cascade: planned {cfg} " + json.dumps(topo.get(cfg)))
+    check(topo == CASCADE_PLANS, f"planned {topo} are not the frozen "
+          f"{CASCADE_PLANS}")
+    for did in ("nnUNetPlans_2d", "nnUNetPlans_3d_fullres",
+                "nnUNetPlans_3d_lowres"):
+        stored = os.listdir(join(pre, did))
+        check(len(stored) == 3 * n, f"{did} holds {stored}")
+
+    # ---- fast_nnunet_train_torch 990 2d 0 / 3d_lowres all /
+    #      3d_cascade_fullres 0
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    out = {"host_s": host, "topology": topo}
+    for cfg, fold in (("2d", 0), ("3d_lowres", "all"),
+                      ("3d_cascade_fullres", 0)):
+        out[cfg] = _train_configuration(torch, dev, a_row, cfg, fold, iters,
+                                        warm)
+        if cfg == "3d_lowres":
+            folder = join(os.environ["nnUNet_results"], ds,
+                          "NNUNetTrainer__nnUNetPlans__3d_lowres",
+                          "predicted_next_stage", "3d_cascade_fullres")
+            deposits = subfiles(folder, suffix=".npz", join_path=False)
+            check(len(deposits) == n, f"{len(deposits)} deposits in "
+                  f"{folder}, not {n}")
+            for d in deposits:
+                seg = np.load(join(folder, d))["seg"]
+                grid = np.load(join(pre, "nnUNetPlans_3d_fullres",
+                                    d[:-4] + ".npy"), mmap_mode="r").shape
+                check(seg.dtype == np.uint8 and seg.shape == grid[1:]
+                      and int(seg.max()) < TRAIN_K,
+                      f"deposit {d}: {seg.dtype} {seg.shape}, the "
+                      f"3d_fullres grid is {grid[1:]}")
+            out["deposits"] = len(deposits)
+            print(f"cascade: 3d_lowres fold all left {len(deposits)} "
+                  f"predicted_next_stage deposits, each uint8 on its case's "
+                  f"3d_fullres grid {grid[1:]}")
+    check(out["3d_cascade_fullres"]["input_channels"] == TRAIN_K,
+          f"the cascade network takes "
+          f"{out['3d_cascade_fullres']['input_channels']} input channels, "
+          f"not 1 + {TRAIN_K - 1}")
+    ph = out["3d_cascade_fullres"]["phases_ms"]
+    print(f"cascade: 3d_cascade_fullres fed iteration: data "
+          f"{ph.get('data', 0.0):.3f} ms (the one-hot of {TRAIN_K - 1} "
+          f"labels and its corruption on the host), h2d "
+          f"{ph.get('h2d', 0.0):.3f} ms, forward_loss "
+          f"{ph.get('forward_loss', 0.0):.3f}, backward "
+          f"{ph.get('backward', 0.0):.3f}, optimizer "
+          f"{ph.get('optimizer', 0.0):.3f} ms")
+
+    # ---- fast_nnunet_predict_torch: 2d, 3d_lowres, then the cascade
+    case = f"case_{n:03d}"
+    img, iprops = NiftiIO().read_images([join(raw, "imagesTs",
+                                              case + "_0000.nii.gz")])
+    outs = {}
+    for cfg, extra in (("2d", ["-f", "0", "--disable_tta"]),
+                       ("3d_lowres", ["-f", "all"]),
+                       ("3d_cascade_fullres", ["-f", "0"])):
+        o = join(os.environ["nnUNet_results"], f"imagesTs_{cfg}")
+        if cfg == "3d_cascade_fullres":
+            extra = extra + ["-prev_stage_predictions", outs["3d_lowres"]]
+        t0 = time.perf_counter()
+        with host_seconds({
+                "sliding_window": (SlidingWindowEngine, "_logits"),
+                "export": (predictor, "export_prediction_from_logits")}
+                ) as spent:
+            predict_entry_point(["-i", join(raw, "imagesTs"), "-o", o, "-d",
+                                 ds, "-c", cfg] + extra)
+        host[f"predict_{cfg}_s"] = time.perf_counter() - t0
+        for k, v in spent.items():
+            host[f"predict_{cfg}_{k}_s"] = sum(v)
+        seg, sprops = NiftiIO().read_seg(join(o, case + ".nii.gz"))
+        labels = np.unique(seg)
+        check(seg.shape == img.shape and
+              list(sprops["spacing"]) == list(iprops["spacing"]) and
+              labels.min() >= 0 and labels.max() < TRAIN_K,
+              f"{cfg} mask {seg.shape} spacing {sprops['spacing']} labels "
+              f"{labels[:8]} for image {img.shape} {iprops['spacing']}")
+        evaluate_simple_entry([join(raw, "labelsTs"), o, "-l",
+                               *map(str, range(1, TRAIN_K))])
+        dice = load_json(join(o, "summary.json"))["foreground_mean"]["Dice"]
+        check(np.isfinite(dice), f"{cfg} test Dice {dice}")
+        out[f"test_fg_dice_{cfg}"] = dice
+        outs[cfg] = o
+        print(f"cascade: fast_nnunet_predict_torch -c {cfg} "
+              f"{' '.join(extra[2:]) or '(mirror TTA)'} "
+              f"{host[f'predict_{cfg}_s']:.3f} s (sliding window "
+              f"{host[f'predict_{cfg}_sliding_window_s']:.3f}, export "
+              f"{host[f'predict_{cfg}_export_s']:.3f} s): mask "
+              f"{seg.shape[1:]} at "
+              f"{list(sprops['spacing'])} mm, {len(labels)} labels; test "
+              f"foreground Dice {dice:.4f}")
+
+    # ---- small: 2D and cascade steps cuda vs cpu
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["small_2d"] = small_train_step(
+            torch, dev, "PlainConvUNet", SMALL_2D, "2D train step",
+            patch=(64, 64))
+        out["small_2d_resenc"] = small_train_step(
+            torch, dev, "ResidualEncoderUNet", SMALL_2D_RESENC,
+            "2D ResEnc train step", patch=(64, 64))
+        out["small_cascade"] = small_train_step(
+            torch, dev, "PlainConvUNet", SMALL_ARCH,
+            "cascade train step (1 + 3 one-hot channels)", cascade=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"cascade: phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"cascade": out}))
+
+
 def small_train_step(torch, dev, cls="PlainConvUNet", arch=SMALL_ARCH,
-                     name="train step", kernel_a=True):
-    """Three SGD steps of a narrow training network ``cls`` at ``arch``,
-    fp32 with TF32 off and deterministic cuDNN, cuda (kernel A, unless
-    ``kernel_a`` is False: a BatchNorm network has no InstanceNorm) vs cpu
-    (plain version): losses within 1e-4 relative, parameters (and a
-    BatchNorm network's running averages) within 1e-5 absolute."""
+                     name="train step", kernel_a=True, patch=(32, 32, 32),
+                     cascade=False):
+    """Three SGD steps of a narrow training network ``cls`` at ``arch`` on
+    ``patch`` (2D or 3D), fp32 with TF32 off and deterministic cuDNN, cuda
+    (kernel A, unless ``kernel_a`` is False: a BatchNorm network has no
+    InstanceNorm) vs cpu (plain version): losses within 1e-4 relative,
+    parameters (and a BatchNorm network's running averages) within 1e-5
+    absolute. ``cascade``: the input is a cascade stage's, the image and the
+    one-hot channels of a previous stage's labels (1 + 3 channels)."""
     import numpy as np
     from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
     from fast_nnunet_tpu_torch.models.s2d import random_plain_params
@@ -2029,22 +2419,27 @@ def small_train_step(torch, dev, cls="PlainConvUNet", arch=SMALL_ARCH,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     rng = np.random.RandomState(5)
+    in_ch = 4 if cascade else 1
+    half = (slice(None),) + (slice(None, None, 2),) * len(patch)
     batches = []
     for _ in range(3):
-        x = rng.randn(2, 1, 32, 32, 32).astype(np.float32)
-        lab = rng.randint(0, 4, (2, 32, 32, 32))
+        x = rng.randn(2, 1, *patch).astype(np.float32)
+        lab = rng.randint(0, 4, (2, *patch))
+        if cascade:
+            prev_lab = rng.randint(0, 4, (2, *patch))
+            x = np.concatenate([x, np.stack([prev_lab == c for c in (1, 2, 3)],
+                                            1).astype(np.float32)], 1)
         batches.append((torch.from_numpy(x), (
-            torch.from_numpy(lab), torch.from_numpy(lab[:, ::2, ::2, ::2]
-                                                    .copy()))))
+            torch.from_numpy(lab), torch.from_numpy(lab[half].copy()))))
 
     def build():
         return get_network_from_plans(
-            cls, arch, (), 1, 4, compute_dtype=torch.float32,
+            cls, arch, (), in_ch, 4, compute_dtype=torch.float32,
             norm_onepass=True, trainable=True)
 
-    tree = random_plain_params(arch, 1, 4, seed=6) \
+    tree = random_plain_params(arch, in_ch, 4, seed=6) \
         if cls == "PlainConvUNet" and "norm_op" not in arch \
-        else params_to_jax(init_he_normal_(build(), 6))
+        and len(patch) == 3 else params_to_jax(init_he_normal_(build(), 6))
     res = []
     try:
         for d in (dev, torch.device("cpu")):

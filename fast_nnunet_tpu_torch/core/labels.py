@@ -163,6 +163,17 @@ class LabelManager:
         return [v for v in classes_or_regions if not is_bg(v)]
 
 
+def convert_labelmap_to_one_hot(segmentation: np.ndarray,
+                                all_labels: Sequence[int],
+                                dtype=np.uint8) -> np.ndarray:
+    """(x, y, z) labelmap -> (len(all_labels), x, y, z) one-hot: the
+    cascade's previous-stage segmentation as extra input channels."""
+    out = np.zeros((len(all_labels), *segmentation.shape), dtype=dtype)
+    for i, lbl in enumerate(all_labels):
+        out[i][segmentation == lbl] = 1
+    return out
+
+
 def determine_num_input_channels(plans_manager, configuration_manager,
                                  dataset_json: dict) -> int:
     """Image channels, plus one-hot fg-label channels when this config is a

@@ -52,6 +52,11 @@ class ConfigurationManager:
         return self.configuration.get("previous_stage")
 
     @property
+    def next_stage_names(self) -> Optional[List[str]]:
+        ret = self.configuration.get("next_stage")
+        return [ret] if isinstance(ret, str) else ret
+
+    @property
     def resampling_fn_data(self):
         return self._resampling_fn("resampling_fn_data")
 

@@ -4,9 +4,12 @@ cross-validation results of every trainer x plans x configuration, evaluate
 each and every pair's ensemble, pick the best, determine its postprocessing
 and write the inference instructions (``inference_information.json``,
 ``inference_report.md`` and ``.html``). The commands name the port's console
-scripts; a cascade configuration still gets its command chain as text,
-although the port's predictor does not take ``-prev_stage_predictions`` yet
-(ROADMAP.md §1 item 5)."""
+scripts and run as written: a cascade configuration's chain predicts its
+previous stage into OUTPUT_FOLDER_PREV_STAGE and passes that folder as
+``-prev_stage_predictions``; an ensemble's members predict with
+``--save_probabilities`` into folders that ``fast_nnunet_ensemble_torch``
+merges (the predictor leaves the model's plans.json and dataset.json
+beside the probabilities)."""
 import argparse
 import itertools
 import os

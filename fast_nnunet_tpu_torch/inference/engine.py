@@ -24,12 +24,19 @@ numerics. Ported routes:
 - ``run_s2d_sweep``: the s2d rolling sweep of the turbo path — forward to
   the pre-head s2d features, kernel C (ops/s2d_accumulate.py) per tile
   batch, kernel B (ops/finalize.py) per chunk with a cyclic row origin.
+- 2D-over-slices: a 2D engine (a 2D network, a 2-entry patch) given a
+  (C, D, Y, X) volume predicts every slice with the 2D tile grid. As in the
+  JAX engine, the slice index becomes the first tile coordinate of a
+  companion 3D engine with patch (1, *patch2d) whose network is the 2D one
+  behind :class:`_SliceBatchAdapter`, so the slices ride the batched tile
+  loop and its chunk grid; mirror axes shift by one. A (C, Y, X) image is
+  one slice.
 
 Fold ensembles (logits averaged over folds) and mirror TTA (averaged over
 all flip combinations) run in every plain-network forward; the s2d sweep
 takes one fold and no mirroring. 16-bit accumulators get the reference's
 x10 gaussian scaling. The coset and streamed sweeps are not ported (no
-option selects them); 2D-over-slices raises ``NotImplementedError``.
+option selects them).
 """
 import contextlib
 import copy
@@ -93,6 +100,22 @@ class PhaseTimer:
         return out
 
 
+class _SliceBatchAdapter(torch.nn.Module):
+    """A 2D network presented as a 3D one with a 1-extent leading spatial
+    axis: tiles (B, C, 1, py, px) squeeze to (B, C, py, px) for the 2D
+    forward and its logits gain the axis back (JAX engine.py:67-81)."""
+
+    def __init__(self, network: torch.nn.Module):
+        super().__init__()
+        self.network = network
+
+    def forward(self, x: torch.Tensor, deep_supervision: bool = False):
+        y = self.network(x[:, :, 0], deep_supervision=deep_supervision)
+        if isinstance(y, (list, tuple)):
+            return tuple(t.unsqueeze(2) for t in y)
+        return y.unsqueeze(2)
+
+
 class SlidingWindowEngine:
     """Sliding-window prediction over a (C, *spatial) volume.
 
@@ -147,6 +170,7 @@ class SlidingWindowEngine:
         self._folds: Tuple[list, list] = ([], [])  # (trees, modules)
         #: optional PhaseTimer; the sweeps bracket forward/accumulate/finalize
         self.timer: Optional[PhaseTimer] = None
+        self._slice_eng: Optional["SlidingWindowEngine"] = None
 
     def phase(self, name: str):
         """Bracket work with the timer's event pair (no-op without one)."""
@@ -469,18 +493,28 @@ class SlidingWindowEngine:
         return acc
 
     def _check_dims(self, volume: np.ndarray) -> None:
+        """The 3D routes take a 3D patch on a (C, X, Y, Z) volume (a 2D
+        engine reaches them only through its companion)."""
         if self.dim != 3 or volume.ndim != 4:
-            raise NotImplementedError(
-                "only 3D patches on (C, X, Y, Z) volumes are ported "
-                "(2D-over-slices is not)")
+            raise ValueError(
+                f"a {self.dim}D patch on a volume of shape {volume.shape}: "
+                "the 3D routes take a 3D patch on (C, X, Y, Z)")
 
     def predict_logits(self, params_list, volume: np.ndarray,
                        steps: Optional[List[List[int]]] = None) -> np.ndarray:
         """volume (C, *spatial) -> gaussian-weighted averaged logits
         (K, *spatial), float32, fold-ensembled and mirror-averaged. Takes the
-        chunk grid when the accumulator would exceed the memory budget."""
+        chunk grid when the accumulator would exceed the memory budget. A 2D
+        engine predicts slice by slice (2D-over-slices)."""
+        if self.dim == 2:
+            return self._predict_logits_2d_over_slices(params_list, volume)
         self._check_dims(volume)
-        forward = self._tile_step_fn(self.load_params(params_list))
+        return self._logits(self._tile_step_fn(self.load_params(params_list)),
+                            volume, steps)
+
+    def _logits(self, forward: Callable, volume: np.ndarray,
+                steps: Optional[List[List[int]]] = None) -> np.ndarray:
+        """:meth:`predict_logits` with the tile forward given."""
         spatial = volume.shape[1:]
         if self._acc_bytes(spatial) > self.max_accumulator_bytes and \
                 any(s > p for s, p in zip(spatial, self.patch_size)):
@@ -498,6 +532,47 @@ class SlidingWindowEngine:
             raise RuntimeError("Non-finite values in accumulated logits — "
                                "consider acc_dtype=float32")
         return logits.permute(3, 0, 1, 2).contiguous().cpu().numpy()
+
+    # -------------------------------------------------------- 2D-over-slices
+    def _predict_logits_2d_over_slices(self, params_list,
+                                       volume: np.ndarray) -> np.ndarray:
+        """(C, D, Y, X) volume with a 2D patch -> (K, D, Y, X) logits (a
+        (C, Y, X) image -> (K, Y, X)). The slice index d is the first tile
+        coordinate of the companion engine (patch (1, *patch2d)); the
+        in-plane steps are the 2D grid's, so every slice gets the tiles the
+        reference's per-slice loop gives it, and the gaussian's constant
+        factor along the 1-extent axis divides out of the weighted mean."""
+        if volume.ndim == 3:
+            return self._predict_logits_2d_over_slices(
+                params_list, volume[:, None])[:, 0]
+        if volume.ndim != 4:
+            raise ValueError(f"a 2D engine takes (C, Y, X) or (C, D, Y, X), "
+                             f"got {volume.shape}")
+        eng = self._slicewise_engine()
+        forward = eng._tile_step_fn(
+            [_SliceBatchAdapter(n) for n in self.load_params(params_list)])
+        tight_yx = tuple(max(s, p)
+                         for s, p in zip(volume.shape[2:], self.patch_size))
+        steps_yx = compute_steps_for_sliding_window(
+            tight_yx, self.patch_size, self.tile_step_size)
+        steps = [list(range(volume.shape[1]))] + [list(s) for s in steps_yx]
+        return eng._logits(forward, volume, steps)
+
+    def _slicewise_engine(self) -> "SlidingWindowEngine":
+        """The companion 3D engine of 2D-over-slices (made once)."""
+        if self._slice_eng is None:
+            self._slice_eng = SlidingWindowEngine(
+                _SliceBatchAdapter(self.network), (1, *self.patch_size),
+                self.num_classes, tile_step_size=self.tile_step_size,
+                use_gaussian=self.use_gaussian,
+                mirror_axes=tuple(a + 1 for a in self.mirror_axes),
+                compute_dtype=self.compute_dtype, acc_dtype=self.acc_dtype,
+                sweep_acc_dtype=self.sweep_acc_dtype,
+                shape_bucket=self.shape_bucket, tile_batch=self.tile_batch,
+                max_accumulator_bytes=self.max_accumulator_bytes,
+                device=self.device)
+        self._slice_eng.timer = self.timer
+        return self._slice_eng
 
     def _make_chunk_grid(self, steps: List[List[int]]) -> List[List[List[int]]]:
         """Group consecutive tile starts per axis so that any chunk's padded
@@ -579,9 +654,10 @@ class SlidingWindowEngine:
                              for a, (s0, e) in enumerate(zip(starts, exts)))
             local = tuple(slice(0, v.stop - v.start) for v in valid_sl)
             a = acc[sl][local]
-            acc_np = a[..., :K].to(t_host).cpu().numpy()
-            out[(slice(None),) + valid_sl] += np.moveaxis(acc_np, -1, 0
-                                                          ).astype(host_dtype)
+            # classes first on the card: the host adds contiguous blocks
+            acc_np = a[..., :K].permute(3, 0, 1, 2).to(t_host).contiguous(
+            ).cpu().numpy()
+            out[(slice(None),) + valid_sl] += acc_np
             wtot[valid_sl] += a[..., K].float().cpu().numpy()
 
         # finalize in x-slabs so a memmap-backed `out` never fully
@@ -739,7 +815,12 @@ class SlidingWindowEngine:
                              volume: np.ndarray) -> np.ndarray:
         """Argmax segmentation: above the accumulator budget one of the
         sweeps (s2d for an s2d network without mirroring, else the plain
-        rolling sweep); otherwise the grid-exact logits path."""
+        rolling sweep); otherwise the grid-exact logits path. A 2D engine
+        takes the argmax of its 2D-over-slices logits, as the JAX engine
+        does."""
+        if self.dim == 2:
+            return self._predict_logits_2d_over_slices(
+                params_list, volume).argmax(0)
         self._check_dims(volume)
         spatial = volume.shape[1:]
         if self._acc_bytes(spatial) > self.max_accumulator_bytes:

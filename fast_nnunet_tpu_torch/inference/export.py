@@ -1,7 +1,9 @@
 """Prediction export on the host (numpy/scipy), copied from
 fast_nnunet_tpu/inference/export.py: resample the logits back to the
 cropped original grid, convert them to a segmentation, revert the crop and
-the transpose, write with the plans' reader/writer."""
+the transpose, write with the plans' reader/writer; and, for the cascade,
+:func:`resample_and_save`, a stage's prediction on the next stage's
+grid."""
 from typing import Union
 
 import numpy as np
@@ -77,3 +79,27 @@ def export_prediction_from_logits(predicted_logits: np.ndarray,
     rw.write_seg(segmentation,
                  output_file_truncated + dataset_json["file_ending"],
                  properties_dict)
+
+
+def resample_and_save(predicted_logits: np.ndarray, target_shape,
+                      output_file: str, plans_manager: PlansManager,
+                      configuration_manager: ConfigurationManager,
+                      properties_dict: dict,
+                      dataset_json: Union[dict, str]) -> None:
+    """Cascade: resample this stage's logits to ``target_shape`` (the next
+    stage's preprocessed grid) and save their segmentation as the next
+    stage's prior, ``np.savez_compressed(output_file, seg=uint8)``."""
+    if isinstance(dataset_json, str):
+        dataset_json = load_json(dataset_json)
+    spacing_transposed = [properties_dict["spacing"][i]
+                          for i in plans_manager.transpose_forward]
+    current_spacing = configuration_manager.spacing
+    if len(current_spacing) < len(target_shape):
+        current_spacing = [spacing_transposed[0]] + list(current_spacing)
+    target_spacing = configuration_manager.spacing
+    resampled = configuration_manager.resampling_fn_probabilities(
+        predicted_logits, target_shape, current_spacing, target_spacing)
+    label_manager = plans_manager.get_label_manager(dataset_json)
+    segmentation = label_manager.convert_logits_to_segmentation(resampled)
+    np.savez_compressed(output_file, seg=segmentation.astype(np.uint8))
+

@@ -8,12 +8,17 @@ from the JAX package; the device part is the port's
 ensembled and mirror TTA averaged in every tile forward. Runs on ``cuda``
 unless the caller passes ``device="cpu"``.
 
-Ported: 3D ``PlainConvUNet`` and ``ResidualEncoderUNet`` checkpoints, their
-distilled students (LiteNNUNetStudent, LiteResEncStudent) and BatchNorm
-networks (``NNUNetTrainerBN``: a checkpoint whose weights carry
-``batch_stats`` is rebuilt with BatchNorm and predicts with its running
-averages). Primus checkpoints and the cascade's previous-stage input raise
-``NotImplementedError``.
+Ported: 2D and 3D ``PlainConvUNet`` and ``ResidualEncoderUNet``
+checkpoints (a 2D network predicts a 3D volume slice by slice, the engine's
+2D-over-slices), their distilled students (LiteNNUNetStudent,
+LiteResEncStudent), BatchNorm networks (``NNUNetTrainerBN``: a checkpoint
+whose weights carry ``batch_stats`` is rebuilt with BatchNorm and predicts
+with its running averages) and the cascade's second stage: the previous
+stage's segmentation of each case (``folder_with_segs_from_prev_stage``,
+``{ident}{file_ending}``) rides the seg path of the preprocessor, so it
+shares the image's crop, skips intensity normalisation and is resampled
+label-safely, and enters the network as one one-hot channel per foreground
+label. Primus checkpoints raise ``NotImplementedError``.
 """
 import os
 import queue
@@ -23,7 +28,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.labels import determine_num_input_channels
+from ..core.labels import (convert_labelmap_to_one_hot,
+                           determine_num_input_channels)
 from ..core.plans import PlansManager
 from ..device import resolve_device
 from ..models.factory import build_network_from_arch_dict, with_batch_norm
@@ -37,12 +43,6 @@ from .engine import SlidingWindowEngine
 from .export import (
     convert_predicted_logits_to_segmentation_with_correct_shape,
     export_prediction_from_logits)
-
-
-def _no_cascade(prev) -> None:
-    if prev is not None:
-        raise NotImplementedError("cascade previous-stage input is not "
-                                  "ported yet")
 
 
 class NNUNetPredictor:
@@ -108,7 +108,6 @@ class NNUNetPredictor:
         init_args = first.get("init_args") or {}
         configuration_manager = plans_manager.get_configuration(
             init_args.get("configuration", "3d_fullres"))
-        _no_cascade(configuration_manager.previous_stage_name)
         num_input_channels = determine_num_input_channels(
             plans_manager, configuration_manager, dataset_json)
         label_manager = plans_manager.get_label_manager(dataset_json)
@@ -162,8 +161,11 @@ class NNUNetPredictor:
     # -------------------------------------------------------------- file API
     def _manage_input_and_output_lists(self, list_of_lists_or_source_folder,
                                        output_folder_or_list,
+                                       folder_with_segs_from_prev_stage=None,
                                        overwrite: bool = True,
                                        part_id: int = 0, num_parts: int = 1):
+        """(input file lists, truncated output files, previous-stage
+        segmentation files or None per case)."""
         fe = self.dataset_json["file_ending"]
         if isinstance(list_of_lists_or_source_folder, str):
             idents = get_identifiers_from_splitted_dataset_folder(
@@ -183,11 +185,15 @@ class NNUNetPredictor:
             output_files = [join(output_folder_or_list, i) for i in idents]
         else:
             output_files = output_folder_or_list
+        seg_prev = [join(folder_with_segs_from_prev_stage, i + fe)
+                    if folder_with_segs_from_prev_stage is not None else None
+                    for i in idents]
         if not overwrite:
             keep = [not isfile(o + fe) for o in output_files]
             list_of_lists = [x for x, k in zip(list_of_lists, keep) if k]
             output_files = [o for o, k in zip(output_files, keep) if k]
-        return list_of_lists, output_files
+            seg_prev = [x for x, k in zip(seg_prev, keep) if k]
+        return list_of_lists, output_files, seg_prev
 
     def predict_from_files(self, list_of_lists_or_source_folder,
                            output_folder_or_list_of_truncated_output_files,
@@ -200,8 +206,10 @@ class NNUNetPredictor:
                            part_id: int = 0, num_parts: int = 1) -> None:
         """Preprocess (one worker thread) -> logits on the device -> export
         (worker threads), with a bounded queue for backpressure, as the JAX
-        predictor does."""
-        _no_cascade(folder_with_segs_from_prev_stage)
+        predictor does. An output folder also gets the model's
+        ``dataset.json`` and ``plans.json``, so that its probabilities
+        ensemble with ``fast_nnunet_ensemble_torch`` as they are."""
+        self._check_prev_stage(folder_with_segs_from_prev_stage is not None)
         out = output_folder_or_list_of_truncated_output_files
         if isinstance(out, str):
             maybe_mkdir_p(out)
@@ -216,11 +224,18 @@ class NNUNetPredictor:
                 "mirror_axes": list(self.allowed_mirroring_axes),
                 "trainer_name": self.trainer_name,
                 "num_folds": len(self.list_of_parameters),
+                "prev_stage": folder_with_segs_from_prev_stage,
                 "device": str(self.device),
             }, join(out, "predict_from_raw_data_args.json"), sort_keys=False)
-        lists, out_files = self._manage_input_and_output_lists(
-            list_of_lists_or_source_folder, out, overwrite, part_id,
-            num_parts)
+            # what fast_nnunet_ensemble_torch reads from its first input
+            # folder (the reference's nnUNetv2_predict writes them too)
+            save_json(self.dataset_json, join(out, "dataset.json"),
+                      sort_keys=False)
+            save_json(self.plans_manager.plans, join(out, "plans.json"),
+                      sort_keys=False)
+        lists, out_files, seg_prev = self._manage_input_and_output_lists(
+            list_of_lists_or_source_folder, out,
+            folder_with_segs_from_prev_stage, overwrite, part_id, num_parts)
         if not lists:
             return
         preproc = DefaultPreprocessor(verbose=self.verbose)
@@ -228,10 +243,13 @@ class NNUNetPredictor:
 
         def producer():
             try:
-                for img_files, out_file in zip(lists, out_files):
-                    data, _, props = preproc.run_case(
-                        img_files, None, self.plans_manager,
+                for img_files, out_file, prev in zip(lists, out_files,
+                                                     seg_prev):
+                    data, seg, props = preproc.run_case(
+                        img_files, prev, self.plans_manager,
                         self.configuration_manager, self.dataset_json)
+                    if prev is not None:
+                        data = self._stack_prev_stage_onehot(data, seg)
                     work_q.put((data, props, out_file))
                 work_q.put(None)
             except Exception as e:  # handed to the consumer, re-raised there
@@ -269,6 +287,26 @@ class NNUNetPredictor:
         if errors:
             raise errors[0]
 
+    def _check_prev_stage(self, given: bool) -> None:
+        """A cascade stage needs the previous stage's segmentation, any
+        other configuration takes none."""
+        cascade = self.configuration_manager.previous_stage_name is not None
+        if given != cascade:
+            raise ValueError(
+                f"configuration with previous stage "
+                f"{self.configuration_manager.previous_stage_name!r}: the "
+                f"previous stage's segmentation was "
+                f"{'given' if given else 'not given'}")
+
+    def _stack_prev_stage_onehot(self, data: np.ndarray,
+                                 seg_prev: np.ndarray) -> np.ndarray:
+        """Cascade: append the one-hot previous-stage channels. ``seg_prev``
+        is the (1, *S) seg that ``run_case`` / ``run_case_npy`` return:
+        already cropped to the image's box and resampled label-safely."""
+        onehot = convert_labelmap_to_one_hot(
+            seg_prev[0], self.label_manager.foreground_labels, data.dtype)
+        return np.vstack([data, onehot])
+
     # ---------------------------------------------------------------- arrays
     def predict_logits_from_preprocessed_data(self, data: np.ndarray
                                               ) -> np.ndarray:
@@ -283,12 +321,23 @@ class NNUNetPredictor:
                                  output_file_truncated: Optional[str] = None,
                                  save_or_return_probabilities: bool = False):
         """(C, X, Y, Z) raw array + {'spacing': ...} -> segmentation in the
-        original geometry (or written to ``output_file_truncated``)."""
-        _no_cascade(segmentation_previous_stage)
-        data, _, props = DefaultPreprocessor(verbose=self.verbose
-                                             ).run_case_npy(
-            input_image, None, dict(image_properties), self.plans_manager,
+        original geometry (or written to ``output_file_truncated``). A
+        cascade stage takes the previous stage's segmentation ((X, Y, Z) or
+        (1, X, Y, Z)) on the raw grid."""
+        self._check_prev_stage(segmentation_previous_stage is not None)
+        seg_in = None
+        if segmentation_previous_stage is not None:
+            # signed: crop_to_nonzero labels the voxels outside the mask -1
+            seg_in = np.asarray(segmentation_previous_stage).astype(
+                np.int16, copy=False)
+            if seg_in.ndim == input_image.ndim - 1:
+                seg_in = seg_in[None]
+        data, seg, props = DefaultPreprocessor(verbose=self.verbose
+                                               ).run_case_npy(
+            input_image, seg_in, dict(image_properties), self.plans_manager,
             self.configuration_manager, self.dataset_json)
+        if seg_in is not None:
+            data = self._stack_prev_stage_onehot(data, seg)
         logits = self.predict_logits_from_preprocessed_data(data)
         if output_file_truncated is not None:
             export_prediction_from_logits(

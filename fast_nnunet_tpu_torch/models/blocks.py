@@ -3,12 +3,13 @@ residual encoder's ``BasicResBlockD`` — the port of
 fast_nnunet_tpu/models/blocks.py.
 
 Layout is torch's NCDHW, with the JAX package's spatial order (X, Y, Z) as
-(D, H, W). Convolutions pad k//2 on each side, as the JAX blocks do, and
-cast their weights to the input's dtype (the network's compute dtype), as a
-flax ``nn.Conv(dtype=...)`` does with its float32 parameters: an inference
-network stores its conv weights in the compute dtype already (the cast is a
-no-op), a training network keeps float32 master weights. InstanceNorm
-parameters are float32 in both.
+(D, H, W), or NCHW for a 2D network: every block takes its rank from its
+kernel size (2 or 3 entries), as the flax blocks do. Convolutions pad k//2
+on each side, as the JAX blocks do, and cast their weights to the input's
+dtype (the network's compute dtype), as a flax ``nn.Conv(dtype=...)`` does
+with its float32 parameters: an inference network stores its conv weights
+in the compute dtype already (the cast is a no-op), a training network
+keeps float32 master weights. InstanceNorm parameters are float32 in both.
 
 InstanceNorm has the JAX block's two forms:
 - inference (blocks.py:74-83): two passes in float32 (mean, then the biased
@@ -90,6 +91,14 @@ class Conv3d(nn.Conv3d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` applied with its weight and bias in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+
 class ConvTranspose3d(nn.ConvTranspose3d):
     """``nn.ConvTranspose3d`` (no output size argument) applied with its
     weight and bias in the input's dtype."""
@@ -99,6 +108,23 @@ class ConvTranspose3d(nn.ConvTranspose3d):
         return F.conv_transpose3d(x, self.weight.to(x.dtype), b, self.stride,
                                   self.padding, self.output_padding,
                                   self.groups, self.dilation)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no output size argument) applied with its
+    weight and bias in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+CONV = {2: Conv2d, 3: Conv3d}
+CONV_TRANSPOSE = {2: ConvTranspose2d, 3: ConvTranspose3d}
+CONV_TYPES = (nn.Conv2d, nn.Conv3d)
+CONV_TRANSPOSE_TYPES = (nn.ConvTranspose2d, nn.ConvTranspose3d)
 
 
 class InstanceNorm(nn.Module):
@@ -169,11 +195,14 @@ def make_norm(norm: str, channels: int, eps: float) -> nn.Module:
 
 
 def _conv(in_channels: int, features: int, kernel_size: Sequence[int],
-          strides: Sequence[int], bias: bool) -> Conv3d:
+          strides: Sequence[int], bias: bool) -> nn.Module:
+    """The conv of the kernel's rank: ``Conv2d`` for a 2-tuple, ``Conv3d``
+    for a 3-tuple."""
     kernel_size = tuple(int(k) for k in kernel_size)
-    return Conv3d(in_channels, features, kernel_size,
-                  tuple(int(s) for s in strides),
-                  tuple(k // 2 for k in kernel_size), bias=bias)
+    return CONV[len(kernel_size)](in_channels, features, kernel_size,
+                                  tuple(int(s) for s in strides),
+                                  tuple(k // 2 for k in kernel_size),
+                                  bias=bias)
 
 
 class ConvDropoutNormReLU(nn.Module):

@@ -5,13 +5,16 @@ Plans name their classes by the reference's dotted paths
 (``dynamic_network_architectures.architectures.unet.PlainConvUNet``,
 ``torch.nn.modules.conv.Conv3d``, ...); the last component is what counts,
 as in the JAX package. Built: ``PlainConvUNet`` / ``LiteNNUNetStudent``
-and ``ResidualEncoderUNet`` / ``LiteResEncStudent`` in 3D, with InstanceNorm
+and ``ResidualEncoderUNet`` / ``LiteResEncStudent`` in 2D (``conv_op``
+``Conv2d``, the ``2d`` configuration) and 3D, with InstanceNorm
 or BatchNorm (``BatchStatsNorm``), in the inference form or, with
 ``norm_onepass``, ``remat`` and ``trainable``, the training form
 (models/unet.py). A residual encoder's ``n_blocks_per_stage`` falls back to
 ``n_conv_per_stage``. A BatchNorm network with remat raises ``ValueError``
-(a recomputed BatchNorm would move its running averages twice); 2D networks
-raise ``NotImplementedError``.
+(a recomputed BatchNorm would move its running averages twice). A cascade
+stage's input channels (image channels + one per foreground label) come
+from ``core.labels.determine_num_input_channels``, which the callers pass
+as ``input_channels``.
 """
 import copy
 from typing import Optional, Sequence, Union
@@ -93,8 +96,8 @@ def get_network_from_plans(arch_class_name: str, arch_kwargs: dict,
     cls = _ARCH_MAP[short]
     kw = dict(arch_kwargs)
     dim = _dim_from_conv_op(kw.get("conv_op"), kw["kernel_sizes"])
-    if dim != 3:
-        raise NotImplementedError(f"{dim}D networks are not ported yet")
+    if dim not in (2, 3):
+        raise ValueError(f"{dim}D networks are not supported")
     norm_op = kw.get("norm_op")
     if norm_op is None or "InstanceNorm" in norm_op:
         norm = "instance1p" if norm_onepass else "instance"

@@ -403,20 +403,6 @@ def _convert_block(blk, kernel_fn, tile: bool):
 
 
 # ----------------------------------------------------------- weight carrier
-def _conv_weight(k: np.ndarray) -> np.ndarray:
-    """flax conv kernel (kx, ky, kz, I, O) -> torch Conv3d (O, I, kx, ky, kz)
-    (both are correlations)."""
-    return np.ascontiguousarray(np.transpose(np.asarray(k), (4, 3, 0, 1, 2)))
-
-
-def _transpconv_weight(k: np.ndarray) -> np.ndarray:
-    """flax conv_transpose kernel (kx, ky, kz, I, O), which lax applies
-    mirrored -> torch ConvTranspose3d (I, O, kx, ky, kz), unmirrored: undo the
-    spatial flip fast_nnunet_tpu/utils/torch_import.py applies."""
-    k = np.asarray(k)[::-1, ::-1, ::-1]
-    return np.ascontiguousarray(np.transpose(k, (3, 4, 0, 1, 2)))
-
-
 def _set(param: torch.Tensor, value: np.ndarray, path: str,
          dtype: torch.dtype) -> None:
     value = np.asarray(value)
@@ -434,11 +420,12 @@ def params_from_jax(net: S2DPlainConvUNet, tree: dict) -> S2DPlainConvUNet:
     stored in the compute dtype (what the JAX apply casts them to), norm
     parameters in float32. Missing conv biases load as zeros; deep-
     supervision heads other than the full-res one are ignored."""
+    from .unet import from_flax_layout   # unet imports this module
     p = tree["params"] if "params" in tree else tree
     dt = net.compute_dtype
 
     def load_block(blk: _Block, t: dict, path: str):
-        _set(blk.conv.weight, _conv_weight(t["conv"]["kernel"]),
+        _set(blk.conv.weight, from_flax_layout("conv", t["conv"]["kernel"]),
              path + "/conv/kernel", dt)
         cb = t["conv"].get("bias", np.zeros(blk.conv.out_channels, np.float32))
         _set(blk.conv.bias, cb, path + "/conv/bias", dt)
@@ -456,13 +443,13 @@ def params_from_jax(net: S2DPlainConvUNet, tree: dict) -> S2DPlainConvUNet:
                 for bname, blk in mod.items():
                     load_block(blk, t[bname], f"{path}/{bname}")
             elif isinstance(mod, nn.ConvTranspose3d):
-                _set(mod.weight, _transpconv_weight(t["kernel"]),
+                _set(mod.weight, from_flax_layout("transpconv", t["kernel"]),
                      path + "/kernel", dt)
                 _set(mod.bias, t.get("bias", np.zeros(mod.out_channels)),
                      path + "/bias", dt)
             elif isinstance(mod, nn.Conv3d):
-                _set(mod.weight, _conv_weight(t["kernel"]), path + "/kernel",
-                     dt)
+                _set(mod.weight, from_flax_layout("conv", t["kernel"]),
+                     path + "/kernel", dt)
                 _set(mod.bias, t.get("bias", np.zeros(mod.out_channels)),
                      path + "/bias", dt)
             else:  # _SegHead

@@ -4,7 +4,9 @@
 LiteResEncStudent).
 
 Forward contract: input (B, C_in, X, Y, Z) in NCDHW with the JAX package's
-spatial order; output float32 logits (B, K, X, Y, Z) of the full-resolution
+spatial order (a ``dim=2`` network: (B, C_in, X, Y) in NCHW, 2D convs,
+transposed convs and seg heads); output float32 logits (B, K, X, Y, Z) of
+the full-resolution
 seg head, or, with ``deep_supervision=True``, a tuple of every decoder
 stage's logits, highest resolution first. Every seg head is a parameter
 whether or not deep supervision is asked for, so a JAX checkpoint loads 1:1;
@@ -16,8 +18,9 @@ The residual encoder is a stem (one conv -> norm -> leaky ReLU at stride
 carrying the stage's stride; its skips feed the same ``UNetDecoder``.
 
 Weights come from the JAX package's flax trees through
-:func:`params_from_jax` (the conv / transposed-conv conventions that
-models/s2d.py pins, the transposed-conv flip included) or from a ``.fnnx``
+:func:`params_from_jax` (the conv / transposed-conv layouts of
+:func:`from_flax_layout`, the transposed-conv flip included; models/s2d.py
+loads its weights through it too) or from a ``.fnnx``
 checkpoint through :func:`restore`; :func:`params_to_jax` is the inverse
 (the training checkpoint writer uses it). One list per network,
 :func:`jax_param_paths` (flax path, tensor, layout kind), drives both and
@@ -43,9 +46,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..training.checkpoint import load_checkpoint
-from .blocks import (BasicResBlockD, BatchStatsNorm, ConvDropoutNormReLU,
-                     ConvTranspose3d, Conv3d, StackedConvBlocks)
-from .s2d import _conv_weight, _set, _transpconv_weight
+from .blocks import (CONV, CONV_TRANSPOSE, CONV_TRANSPOSE_TYPES, CONV_TYPES,
+                     BasicResBlockD, BatchStatsNorm, ConvDropoutNormReLU,
+                     StackedConvBlocks)
+from .s2d import _set
 
 
 def as_tuples(x, n_stages: int, dim: int) -> Tuple[Tuple[int, ...], ...]:
@@ -140,20 +144,22 @@ class UNetDecoder(nn.Module):
         super().__init__()
         f = [int(v) for v in features_per_stage]
         n = len(f)
+        dim = len(kernel_sizes[0])
         self.n_stages_encoder = n
         mods = nn.ModuleDict()
         for s in range(1, n):
             d = s - 1
             st = tuple(strides[-s])
             cout = f[-(s + 1)]
-            mods[f"transpconv_{d}"] = ConvTranspose3d(f[-s], cout, st, st,
-                                                      bias=conv_bias)
+            mods[f"transpconv_{d}"] = CONV_TRANSPOSE[dim](
+                f[-s], cout, st, st, bias=conv_bias)
             mods[f"stage_{d}"] = StackedConvBlocks(
                 n_conv_per_stage_decoder[d], 2 * cout, cout,
                 kernel_sizes[-(s + 1)], (1,) * len(st), conv_bias, norm_eps,
                 nonlin_negative_slope, norm,
                 remat is True or (remat == "light" and s == n - 1))
-            mods[f"seg_head_{d}"] = Conv3d(cout, num_classes, 1, bias=True)
+            mods[f"seg_head_{d}"] = CONV[dim](cout, num_classes, 1,
+                                              bias=True)
         self.mods = mods
 
     def forward(self, skips: Sequence[torch.Tensor],
@@ -192,8 +198,8 @@ class _UNet(nn.Module):
                  norm: str = "instance", remat=False,
                  trainable: bool = False):
         super().__init__()
-        if dim != 3:
-            raise NotImplementedError("only 3D networks are ported")
+        if dim not in CONV:
+            raise ValueError(f"dim must be 2 or 3, got {dim}")
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got "
                              f"{remat!r}")
@@ -201,6 +207,7 @@ class _UNet(nn.Module):
             remat = bool(remat)
         ks = as_tuples(kernel_sizes, n_stages, dim)
         st = as_tuples(strides, n_stages, dim)
+        self.dim = int(dim)
         self.input_channels = int(input_channels)
         self.num_classes = int(num_classes)
         self.compute_dtype = compute_dtype
@@ -215,7 +222,7 @@ class _UNet(nn.Module):
         self.requires_grad_(self.trainable)
         if not self.trainable:
             for m in self.modules():
-                if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+                if isinstance(m, CONV_TYPES + CONV_TRANSPOSE_TYPES):
                     m.to(compute_dtype)
 
     def forward(self, x: torch.Tensor, deep_supervision: bool = False):
@@ -293,7 +300,8 @@ def jax_param_paths(net: nn.Module) -> List[Tuple[tuple, torch.Tensor, str]]:
 
     def unit(blk, path):
         for name, mod in blk.named_children():
-            (conv if isinstance(mod, nn.Conv3d) else norm)(mod, path + (name,))
+            (conv if isinstance(mod, CONV_TYPES) else norm)(mod,
+                                                            path + (name,))
 
     def stack(st, path):
         for name, blk in st.blocks.items():
@@ -313,28 +321,36 @@ def jax_param_paths(net: nn.Module) -> List[Tuple[tuple, torch.Tensor, str]]:
             stack(mod, path)
         else:
             conv(mod, path, "transpconv"
-                 if isinstance(mod, nn.ConvTranspose3d) else "conv")
+                 if isinstance(mod, CONV_TRANSPOSE_TYPES) else "conv")
     return out
 
 
 def to_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
-    """torch layout -> flax layout: conv (O, I, *k) -> (*k, I, O);
-    transposed conv (I, O, *k) -> (*k, I, O) mirrored (flax applies its
-    transposed kernels mirrored); vectors unchanged."""
+    """torch layout -> flax layout, in 2D and 3D: conv (O, I, *k) ->
+    (*k, I, O); transposed conv (I, O, *k) -> (*k, I, O) mirrored on every
+    spatial axis (flax applies its transposed kernels mirrored); vectors
+    unchanged."""
+    w = np.asarray(w)
+    n = w.ndim - 2
+    spatial = tuple(range(2, 2 + n))
     if kind == "conv":
-        w = np.transpose(w, (2, 3, 4, 1, 0))
+        w = np.transpose(w, spatial + (1, 0))
     elif kind == "transpconv":
-        w = np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]
+        w = np.flip(np.transpose(w, spatial + (0, 1)), tuple(range(n)))
     return np.ascontiguousarray(w)
 
 
 def from_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
-    """The inverse of :func:`to_flax_layout`."""
+    """The inverse of :func:`to_flax_layout`: flax (*k, I, O) -> torch conv
+    (O, I, *k) or, unmirrored, transposed conv (I, O, *k)."""
+    w = np.asarray(w)
+    n = w.ndim - 2
+    spatial = tuple(range(n))
     if kind == "conv":
-        return _conv_weight(w)
-    if kind == "transpconv":
-        return _transpconv_weight(w)
-    return np.asarray(w)
+        w = np.transpose(w, (n + 1, n) + spatial)
+    elif kind == "transpconv":
+        w = np.transpose(np.flip(w, spatial), (n, n + 1) + spatial)
+    return np.ascontiguousarray(w)
 
 
 def tree_to_jax(net: nn.Module, value: Callable,

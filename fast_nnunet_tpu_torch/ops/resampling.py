@@ -3,6 +3,8 @@ fast_nnunet_tpu/ops/resampling.py: skimage's ``resize(order, mode='edge',
 anti_aliasing=False)`` as ``scipy.ndimage.zoom(..., mode='nearest',
 grid_mode=True)`` plus clipping, the separate-z path for anisotropic
 spacings, and the plans' name -> function resolution."""
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -97,7 +99,8 @@ def resample_data_or_seg(data: np.ndarray, new_shape: Sequence[int],
                          order: int = 3, do_separate_z: bool = False,
                          order_z: int = 0, dtype_out=None) -> np.ndarray:
     """(c, x, y, z) resampling; with do_separate_z the anisotropic axis is
-    resampled separately with order_z."""
+    resampled separately with order_z. Several channels resample in
+    threads, one channel each."""
     assert data.ndim == 4, "data must be (c, x, y, z)"
     assert len(new_shape) == data.ndim - 1
     shape = np.array(data[0].shape)
@@ -117,26 +120,37 @@ def resample_data_or_seg(data: np.ndarray, new_shape: Sequence[int],
     if do_separate_z:
         assert axis is not None, "do_separate_z requires the anisotropic axis"
         plane_shape = np.delete(new_shape, axis)
-        for c in range(data.shape[0]):
-            planes = [_resize(plane, plane_shape)
-                      for plane in np.moveaxis(data[c], axis, 0)]
-            stacked = np.moveaxis(np.stack(planes), 0, axis)
-            if shape[axis] == new_shape[axis]:
-                reshaped_final[c] = stacked
-                continue
-            grid = _pixel_center_grid(stacked.shape, new_shape)
-            if not is_seg or order_z == 0:
-                reshaped_final[c] = map_coordinates(stacked, grid,
-                                                    order=order_z,
-                                                    mode="nearest")
-            else:
-                for lbl in np.sort(np.unique(stacked)):
-                    on = map_coordinates((stacked == lbl).astype(float), grid,
-                                         order=order_z, mode="nearest")
-                    reshaped_final[c][np.round(on) > 0.5] = lbl
-    else:
-        for c in range(data.shape[0]):
+
+    def resample_channel(c):
+        if not do_separate_z:
             reshaped_final[c] = _resize(data[c], new_shape)
+            return
+        planes = [_resize(plane, plane_shape)
+                  for plane in np.moveaxis(data[c], axis, 0)]
+        stacked = np.moveaxis(np.stack(planes), 0, axis)
+        if shape[axis] == new_shape[axis]:
+            reshaped_final[c] = stacked
+            return
+        grid = _pixel_center_grid(stacked.shape, new_shape)
+        if not is_seg or order_z == 0:
+            reshaped_final[c] = map_coordinates(stacked, grid, order=order_z,
+                                                mode="nearest")
+            return
+        for lbl in np.sort(np.unique(stacked)):
+            on = map_coordinates((stacked == lbl).astype(float), grid,
+                                 order=order_z, mode="nearest")
+            reshaped_final[c][np.round(on) > 0.5] = lbl
+
+    # channels are independent and scipy's zoom releases the GIL: a
+    # prediction's many classes resample in threads, with the same result
+    channels = range(data.shape[0])
+    n_threads = min(len(channels), len(os.sched_getaffinity(0)))
+    if n_threads > 1:
+        with ThreadPoolExecutor(n_threads) as pool:
+            list(pool.map(resample_channel, channels))
+    else:
+        for c in channels:
+            resample_channel(c)
     return reshaped_final
 
 

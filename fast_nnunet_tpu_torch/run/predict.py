@@ -4,7 +4,11 @@ counterpart of fast_nnunet_tpu/run/predict.py): a folder of
 
 The model is a trained model folder (``-m``), or is found under
 ``$nnUNet_results/<Dataset>/<trainer>__<plans>__<configuration>`` from
-``-d/-tr/-p/-c``. Runs on the card unless ``-device cpu`` is given.
+``-d/-tr/-p/-c``. Every configuration predicts: ``-c 2d`` predicts 3D
+volumes slice by slice, and the cascade's second stage
+(``-c 3d_cascade_fullres``) takes the first stage's output folder as
+``-prev_stage_predictions``. Runs on the card unless ``-device cpu`` is
+given.
 """
 import argparse
 import os
@@ -50,6 +54,9 @@ def predict_entry_point(argv=None) -> None:
     ap.add_argument("--save_probabilities", action="store_true")
     ap.add_argument("--continue_prediction", action="store_true")
     ap.add_argument("-chk", default="checkpoint_final.fnnx")
+    ap.add_argument("-prev_stage_predictions", default=None,
+                    help="cascade: folder of the previous stage's "
+                         "segmentations, one {case}{ending} per case")
     ap.add_argument("-npp", type=int, default=3)
     ap.add_argument("-nps", type=int, default=3)
     ap.add_argument("-num_parts", type=int, default=1)
@@ -70,6 +77,7 @@ def predict_entry_point(argv=None) -> None:
         overwrite=not args.continue_prediction,
         num_processes_preprocessing=args.npp,
         num_processes_segmentation_export=args.nps,
+        folder_with_segs_from_prev_stage=args.prev_stage_predictions,
         part_id=args.part_id, num_parts=args.num_parts)
 
 

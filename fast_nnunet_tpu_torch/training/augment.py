@@ -293,14 +293,55 @@ def convert_labels_to_regions(seg: np.ndarray, regions,
 
 
 # --------------------------------------------------------------- pipeline
+def cascade_augment_prev_stage(onehot: np.ndarray, rng: np.random.RandomState,
+                               p_remove_component: float = 0.4,
+                               p_morph: float = 0.2) -> np.ndarray:
+    """Corrupt the previous-stage one-hot channels in place, so that the
+    second cascade stage learns to fix the first stage's mistakes: per
+    channel, drop one random connected component (p 0.4), then dilate or
+    erode by 1-2 iterations (p 0.2)."""
+    from scipy import ndimage
+    for c in range(onehot.shape[0]):
+        if rng.uniform() < p_remove_component:
+            labeled, n = ndimage.label(onehot[c])
+            if n > 1:
+                drop = rng.randint(1, n + 1)
+                onehot[c][labeled == drop] = 0
+        if rng.uniform() < p_morph and onehot[c].any():
+            op = ndimage.binary_dilation if rng.uniform() < 0.5 \
+                else ndimage.binary_erosion
+            onehot[c] = op(onehot[c], iterations=rng.randint(1, 3)).astype(
+                onehot.dtype)
+    return onehot
+
+
+def move_prev_stage_to_data(data: np.ndarray, seg: np.ndarray,
+                            cascade_labels: Sequence[int],
+                            rng: Optional[np.random.RandomState] = None):
+    """Cascade: seg channel 1 (the previous stage's segmentation) becomes one
+    float32 one-hot data channel per label of ``cascade_labels``, corrupted
+    by :func:`cascade_augment_prev_stage` when ``rng`` is given (training);
+    returns (data with the channels appended, seg channel 0)."""
+    prev = seg[1]
+    onehot = np.stack([(prev == lbl).astype(np.float32)
+                       for lbl in cascade_labels])
+    if rng is not None:
+        onehot = cascade_augment_prev_stage(onehot, rng)
+    return np.concatenate([data, onehot], axis=0), seg[:1]
+
+
 class TrainingAugmenter:
-    """The default nnU-Net training pipeline as one per-sample callable (the
-    cascade's previous-stage channels are not ported)."""
+    """The default nnU-Net training pipeline as one per-sample callable.
+    Cascade: with ``cascade_labels`` set, seg channel 1 carries the previous
+    stage's segmentation; after the geometric and intensity transforms it
+    is one-hot encoded, corrupted and appended to the data channels
+    (:func:`move_prev_stage_to_data`)."""
 
     def __init__(self, patch_size, rotation_range, mirror_axes,
                  use_mask_for_norm=None, dummy_2d: bool = False,
                  regions=None, ignore_label: Optional[int] = None,
                  ds_scales: Optional[List[Tuple[float, ...]]] = None,
+                 cascade_labels: Optional[List[int]] = None,
                  spatial_data_order: int = 1):
         self.spatial_data_order = spatial_data_order
         self.patch_size = tuple(patch_size)
@@ -311,6 +352,7 @@ class TrainingAugmenter:
         self.regions = regions
         self.ignore_label = ignore_label
         self.ds_scales = ds_scales
+        self.cascade_labels = cascade_labels
 
     def __call__(self, data: np.ndarray, seg: np.ndarray, rng: np.random.RandomState):
         data = np.ascontiguousarray(data, dtype=np.float32)
@@ -330,6 +372,9 @@ class TrainingAugmenter:
             data, seg = mirror_augment(data, seg, rng, self.mirror_axes)
         if self.use_mask_for_norm is not None and any(self.use_mask_for_norm):
             data = mask_image(data, seg, self.use_mask_for_norm)
+        if self.cascade_labels is not None and seg.shape[0] > 1:
+            data, seg = move_prev_stage_to_data(data, seg,
+                                                self.cascade_labels, rng)
         seg = seg.copy()
         seg[seg == -1] = 0  # RemoveLabelTransform
         if self.regions is not None:
@@ -342,15 +387,20 @@ class TrainingAugmenter:
 class ValidationAugmenter:
     """Center crop + -1 removal + region conversion + DS downsampling only."""
 
-    def __init__(self, patch_size, regions=None, ignore_label=None, ds_scales=None):
+    def __init__(self, patch_size, regions=None, ignore_label=None, ds_scales=None,
+                 cascade_labels=None):
         self.patch_size = tuple(patch_size)
         self.regions = regions
         self.ignore_label = ignore_label
         self.ds_scales = ds_scales
+        self.cascade_labels = cascade_labels
 
     def __call__(self, data, seg, rng):
         data = _center_crop(np.asarray(data, dtype=np.float32), self.patch_size)
         seg = _center_crop(np.asarray(seg), self.patch_size)
+        if self.cascade_labels is not None and seg.shape[0] > 1:
+            data, seg = move_prev_stage_to_data(data, seg,
+                                                self.cascade_labels)
         seg = seg.copy()
         seg[seg == -1] = 0
         if self.regions is not None:

@@ -1,8 +1,9 @@
 """DA5 strong augmentation for small datasets — a copy of
 fast_nnunet_tpu/training/augment_da5.py (numpy/scipy host work, the same
 draws in the same order, so one ``np.random.RandomState`` gives the same
-sample in both packages, bit for bit; the cascade's previous-stage channels
-are not ported).
+sample in both packages, bit for bit; a cascade stage's previous-stage
+channels are moved into the data, one-hot and corrupted, as in the default
+pipeline).
 
 The reference builds its DA5 pipeline from 16 batchgenerators transforms in
 a fixed order with per-transform probabilities (ref distillation/nnunetv2/
@@ -37,8 +38,8 @@ from .augment import (TrainingAugmenter, contrast_augment,
                       convert_labels_to_regions, downsample_seg_for_ds,
                       gamma_augment, gaussian_blur, gaussian_noise,
                       get_patch_size, mask_image, mirror_augment,
-                      multiplicative_brightness, simulate_low_resolution,
-                      spatial_augment)
+                      move_prev_stage_to_data, multiplicative_brightness,
+                      simulate_low_resolution, spatial_augment)
 
 
 def _matching_axes(patch_size) -> Tuple[np.ndarray, list]:
@@ -436,6 +437,9 @@ class DA5TrainingAugmenter(TrainingAugmenter):
         data = sharpening_augment(data, rng)
         if self.use_mask_for_norm is not None and any(self.use_mask_for_norm):
             data = mask_image(data, seg, self.use_mask_for_norm)
+        if self.cascade_labels is not None and seg.shape[0] > 1:
+            data, seg = move_prev_stage_to_data(data, seg,
+                                                self.cascade_labels, rng)
         seg = seg.copy()
         seg[seg == -1] = 0
         if self.regions is not None:

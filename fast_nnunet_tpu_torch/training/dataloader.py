@@ -3,12 +3,16 @@ prefetch — a copy of fast_nnunet_tpu/training/dataloader.py, so one
 ``np.random.RandomState`` draws the same batch in both packages.
 
 Batches stay NCDHW (the port's device layout; the JAX trainer's move to
-channels-last has no counterpart; nor does the cascade's previous-stage
-segmentation, which the port's trainer does not take). With ``pin_memory=True`` the worker
+channels-last has no counterpart). A cascade stage's sampler reads the
+previous stage's prediction of each case (``prev_stage_folder``, one
+``{ident}.npz`` with key ``seg`` on this configuration's grid) and stacks
+it as seg channel 1, so it shares the patch's crop and the spatial
+transforms. With ``pin_memory=True`` the worker
 threads hand over page-locked tensors, so the trainer's host-to-device copy
 runs with ``non_blocking=True``. A worker's exception is re-raised by
 ``next()`` in the training loop.
 """
+import os
 import queue
 import threading
 from typing import Callable, List, Optional, Sequence
@@ -24,7 +28,8 @@ class PatchSampler:
                  initial_patch_size: Sequence[int], final_patch_size: Sequence[int],
                  oversample_foreground_percent: float = 0.33,
                  transform: Optional[Callable] = None,
-                 probabilistic_oversampling: bool = False):
+                 probabilistic_oversampling: bool = False,
+                 prev_stage_folder: Optional[str] = None):
         self.dataset = dataset
         self.identifiers = dataset.keys()
         self.batch_size = batch_size
@@ -41,6 +46,20 @@ class PatchSampler:
         self.oversample = oversample_foreground_percent
         self.transform = transform
         self.probabilistic = probabilistic_oversampling
+        self.prev_stage_folder = prev_stage_folder
+
+    def _load_prev_stage(self, ident: str, shape) -> Optional[np.ndarray]:
+        if self.prev_stage_folder is None:
+            return None
+        path = os.path.join(self.prev_stage_folder, ident + ".npz")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"cascade requires previous-stage prediction {path} — run the "
+                "3d_lowres stage's predict_next_stage first")
+        prev = np.load(path)["seg"]
+        assert prev.shape == tuple(shape), \
+            f"prev-stage seg shape {prev.shape} != case shape {tuple(shape)}"
+        return prev
 
     def _must_force_fg(self, sample_idx: int, rng) -> bool:
         if self.probabilistic:
@@ -79,6 +98,10 @@ class PatchSampler:
             bbox = self._get_bbox(data.shape[1:], force_fg,
                                   props.get("class_locations"), rng)
             patch_data = crop_and_pad_nd(data, bbox, 0)
+            prev = self._load_prev_stage(ident, data.shape[1:])
+            if prev is not None:
+                seg = np.concatenate([np.asarray(seg),
+                                      prev[None].astype(seg.dtype)])
             patch_seg = crop_and_pad_nd(seg, bbox, -1)
             if self._patch_was_2d:
                 patch_data = patch_data[:, 0]

@@ -103,6 +103,12 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
                  rotate_folds_frequency: int = 50,
                  student_plans_identifier: str = "nnUNetPlans"):
         super().__init__(plans, configuration, fold, dataset_json, device)
+        if len(self.configuration_manager.patch_size) != 3 or \
+                self.is_cascaded:
+            raise NotImplementedError(
+                f"distillation of the {configuration!r} configuration is not "
+                "ported: 2d and cascade distillation wait (ROADMAP.md §1 "
+                "item 5)")
         self.teacher_model_folder = teacher_model_folder
         self.teacher_fold = list(teacher_fold) if isinstance(
             teacher_fold, (list, tuple)) else [teacher_fold]

@@ -21,8 +21,19 @@ Trainer variants (training/trainer_variants.py) override
 ``build_network_architecture``, ``configure_optimizer``,
 ``_configure_rotation_dummyDA_mirroring_and_initial_patch_size``,
 ``_make_training_transform`` and the class attribute ``loss_kind``
-(training/losses.py ``loss_of_kind``; "dc_ce" is the default loss). Not
-ported (``NotImplementedError``): cascaded configurations, multi-GPU and
+(training/losses.py ``loss_of_kind``; "dc_ce" is the default loss).
+
+Every configuration of a plans file trains: ``2d`` (a 2D network on
+pseudo-3D slices sampled from the 3D cases, validated 2D-over-slices),
+``3d_fullres``, ``3d_lowres`` and the cascade's ``3d_cascade_fullres``. A
+cascade stage (``previous_stage`` in its plans) takes 1 + one input channel
+per foreground label: the samplers read the previous stage's predictions
+from ``<previous stage's output folder>/predicted_next_stage/<this
+configuration>`` and the augmenters move them into the data one-hot
+(corrupted in training). A stage with a ``next_stage`` leaves, in its final
+validation, each case's prediction on the next stage's preprocessed grid
+there, when that stage is preprocessed (``3d_lowres`` on fold ``all``
+leaves one per case). Not ported (``NotImplementedError``): multi-GPU and
 multi-host training.
 """
 import os
@@ -71,9 +82,6 @@ class NNUNetTrainer:
         self.dataset_json = dataset_json
         self.fold = fold
         self.label_manager = self.plans_manager.get_label_manager(dataset_json)
-        if self.configuration_manager.previous_stage_name is not None:
-            raise NotImplementedError(
-                "cascaded configurations are not ported to the PyTorch trainer")
 
         # ---- hyperparameters (reference defaults)
         self.initial_lr = 1e-2
@@ -98,6 +106,9 @@ class NNUNetTrainer:
         self.preprocessed_dataset_folder_base = None
         self.output_folder_base = None
         self.output_folder = None
+        self.is_cascaded = \
+            self.configuration_manager.previous_stage_name is not None
+        self.folder_with_segs_from_previous_stage = None
         try:
             from ..paths import get_preprocessed_folder, get_results_folder
             self.preprocessed_dataset_folder_base = join(
@@ -107,6 +118,14 @@ class NNUNetTrainer:
                 f"{self.__class__.__name__}__{self.plans_manager.plans_name}__"
                 f"{configuration}")
             self.output_folder = join(self.output_folder_base, f"fold_{fold}")
+            if self.is_cascaded:
+                # where the previous stage deposits its predictions for us
+                self.folder_with_segs_from_previous_stage = join(
+                    get_results_folder(), self.plans_manager.dataset_name,
+                    f"{self.__class__.__name__}__"
+                    f"{self.plans_manager.plans_name}__"
+                    f"{self.configuration_manager.previous_stage_name}",
+                    "predicted_next_stage", configuration)
         except RuntimeError:
             pass  # paths unset: fine for in-memory use
 
@@ -264,16 +283,20 @@ class NNUNetTrainer:
             patch_size, rotation, mirror_axes, dummy_2d, lm, ds_scales)
         val_transform = ValidationAugmenter(
             patch_size, regions=regions, ignore_label=lm.ignore_label,
-            ds_scales=ds_scales)
+            ds_scales=ds_scales,
+            cascade_labels=lm.foreground_labels if self.is_cascaded else None)
 
         bs = self.configuration_manager.batch_size
         oversample = self.oversample_foreground_percent
+        prev = self.folder_with_segs_from_previous_stage
         sampler_tr = PatchSampler(
             ds_tr, bs, initial_patch, patch_size, oversample,
             transform=train_transform,
-            probabilistic_oversampling=self.probabilistic_oversampling)
+            probabilistic_oversampling=self.probabilistic_oversampling,
+            prev_stage_folder=prev)
         sampler_val = PatchSampler(ds_val, bs, patch_size, patch_size,
-                                   oversample, transform=val_transform)
+                                   oversample, transform=val_transform,
+                                   prev_stage_folder=prev)
         n_proc = get_allowed_n_proc_DA()
         pin = self.device.type == "cuda"
         seed = 12345
@@ -291,7 +314,8 @@ class NNUNetTrainer:
             use_mask_for_norm=self.configuration_manager.use_mask_for_norm,
             dummy_2d=dummy_2d,
             regions=lm.foreground_regions if lm.has_regions else None,
-            ignore_label=lm.ignore_label, ds_scales=ds_scales)
+            ignore_label=lm.ignore_label, ds_scales=ds_scales,
+            cascade_labels=lm.foreground_labels if self.is_cascaded else None)
 
     def batch_to_device(self, batch: dict):
         """(data (B, C, *patch), targets) on the trainer's device: label
@@ -487,10 +511,15 @@ class NNUNetTrainer:
         """Sliding-window prediction of the validation split
         (``SlidingWindowEngine.predict_logits``, gaussian, step 0.5, the
         trainer's mirror axes), export to the raw grid and the metrics
-        summary.json against nnUNet_raw's labelsTr."""
+        summary.json against nnUNet_raw's labelsTr. A cascade stage
+        predicts with the previous stage's one-hot channels; a stage with a
+        next stage deposits each case's prediction on that stage's grid
+        (``predicted_next_stage``), skipped where it is not preprocessed."""
+        from ..core.labels import convert_labelmap_to_one_hot
         from ..evaluation.metrics import compute_metrics_on_folder
         from ..inference.engine import SlidingWindowEngine
-        from ..inference.export import export_prediction_from_logits
+        from ..inference.export import (export_prediction_from_logits,
+                                        resample_and_save)
         from ..paths import get_raw_folder
 
         validation_output_folder = join(self.output_folder, "validation")
@@ -505,13 +534,38 @@ class NNUNetTrainer:
             mirror_axes=self.inference_allowed_mirroring_axes or (),
             compute_dtype=self.compute_dtype, device=self.device)
         params = params_to_jax(self.network)
+        next_stages = self.configuration_manager.next_stage_names or []
         for ident in val_keys:
             data, _, props = ds_val.load_case(ident, mmap=False)
+            if self.is_cascaded:
+                prev = np.load(join(self.folder_with_segs_from_previous_stage,
+                                    ident + ".npz"))["seg"]
+                onehot = convert_labelmap_to_one_hot(
+                    prev, self.label_manager.foreground_labels, data.dtype)
+                data = np.vstack([np.asarray(data), onehot])
             logits = engine.predict_logits(params, np.asarray(data))
             export_prediction_from_logits(
                 logits, props, self.configuration_manager, self.plans_manager,
                 self.dataset_json, join(validation_output_folder, ident),
                 save_probabilities)
+            # cascade: this case's prediction on the next stage's grid
+            for ns in next_stages:
+                ns_cfg = self.plans_manager.get_configuration(ns)
+                ns_data_folder = join(self.preprocessed_dataset_folder_base,
+                                      ns_cfg.data_identifier)
+                try:
+                    ns_data, _, _ = infer_dataset_class(ns_data_folder)(
+                        ns_data_folder).load_case(ident)
+                except (FileNotFoundError, KeyError, ValueError):
+                    continue  # next stage not preprocessed yet
+                out_folder = join(self.output_folder_base,
+                                  "predicted_next_stage", ns)
+                maybe_mkdir_p(out_folder)
+                resample_and_save(logits, ns_data.shape[1:],
+                                  join(out_folder, ident + ".npz"),
+                                  self.plans_manager,
+                                  self.configuration_manager, props,
+                                  self.dataset_json)
 
         gt_folder = join(get_raw_folder(), self.plans_manager.dataset_name,
                          "labelsTr")

@@ -116,6 +116,7 @@ class NNUNetTrainerDAOrd0(NNUNetTrainer):
             dummy_2d=dummy_2d,
             regions=lm.foreground_regions if lm.has_regions else None,
             ignore_label=lm.ignore_label, ds_scales=ds_scales,
+            cascade_labels=lm.foreground_labels if self.is_cascaded else None,
             spatial_data_order=0)
 
 
@@ -137,7 +138,8 @@ class NNUNetTrainerDA5(NNUNetTrainer):
             use_mask_for_norm=self.configuration_manager.use_mask_for_norm,
             dummy_2d=dummy_2d,
             regions=lm.foreground_regions if lm.has_regions else None,
-            ignore_label=lm.ignore_label, ds_scales=ds_scales)
+            ignore_label=lm.ignore_label, ds_scales=ds_scales,
+            cascade_labels=lm.foreground_labels if self.is_cascaded else None)
 
 
 class NNUNetTrainerDA5ord0(NNUNetTrainerDA5):

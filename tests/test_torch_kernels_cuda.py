@@ -113,6 +113,41 @@ def test_stats_two_calls_bit_equal(cuda_device, shape):
     assert _stats_within_tolerance(a, x)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,k", [
+    ((12, 32, 512, 512), None),     # a 2d configuration's stage 0 (k = 1)
+    ((12, 64, 256, 256), None),
+    ((2, 3, 64, 64), None),         # few rows: the plan splits them
+    ((2, 8, 128, 96), 4),           # a forced split of 4-D rows
+    ((3, 5, 67, 61), 2),            # ... ragged rows on the element path
+])
+def test_stats_4d_matches_plain(cuda_device, dtype, shape, k):
+    """Kernel A on (B, C, H, W) activations (the 2D networks' norms):
+    against the plain version within the kernel's tolerance, and bit-equal
+    over two calls; k None is the wrapper's own plan."""
+    from fast_nnunet_tpu_torch.ops import _build
+    from fast_nnunet_tpu_torch.ops.stats import _launch, _split_plan
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 1).to(
+        getattr(torch, dtype))
+    rows, S = shape[0] * shape[1], shape[2] * shape[3]
+
+    def call():
+        if k is None:
+            n0 = spatial_sum_sumsq.launches
+            got = spatial_sum_sumsq(x)
+            assert spatial_sum_sumsq.launches == n0 + 1
+            return got
+        out = torch.empty((2, shape[0], shape[1]), device=cuda_device)
+        _launch(x, _build.dtype_code(x), rows, S,
+                _split_plan(rows, S, x.element_size(), k), out)
+        return out[0], out[1]
+
+    a, b = call(), call()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert _stats_within_tolerance(a, x)
+
+
 # ---------------------------------------------------------- kernel B: argmax
 @pytest.mark.parametrize("dtype,c8p", [("float32", 128), ("bfloat16", 40)])
 def test_finalize_bit_equals_plain(cuda_device, dtype, c8p):
@@ -460,6 +495,30 @@ def test_resenc_training_norms_launch_kernel_a(cuda_device, remat):
     assert spatial_sum_sumsq.launches - n0 == 10
     sum(o.float().mean() for o in out).backward()
     assert spatial_sum_sumsq.launches - n0 == (19 if remat else 10)
+
+
+@pytest.mark.parametrize("cls", ["PlainConvUNet", "ResidualEncoderUNet"])
+def test_2d_training_norms_launch_kernel_a(cuda_device, cls):
+    """A 2D training network on the card: every one-pass norm at >= 4096
+    in-plane voxels (64^2 here) launches kernel A on its 4-D activation."""
+    arch = {"n_stages": 3, "features_per_stage": [8, 16, 32],
+            "kernel_sizes": [[3, 3]] * 3, "strides": [[1, 1], [2, 2], [2, 2]],
+            "n_conv_per_stage": [2, 2, 2], "n_blocks_per_stage": [1, 2, 2],
+            "n_conv_per_stage_decoder": [2, 2],
+            "conv_op": "torch.nn.modules.conv.Conv2d"}
+    net = get_network_from_plans(cls, arch, (), 1, K,
+                                 compute_dtype=torch.bfloat16,
+                                 norm_onepass=True,
+                                 trainable=True).to(cuda_device)
+    x = torch.randn(2, 1, 64, 64, device=cuda_device)
+    n0 = spatial_sum_sumsq.launches
+    out = net(x, deep_supervision=True)
+    # 64^2 only: encoder stage 0 and the last decoder stack
+    want = (2 + 2) if cls == "PlainConvUNet" else (1 + 2 + 2)
+    assert spatial_sum_sumsq.launches - n0 == want
+    sum(o.float().mean() for o in out).backward()
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters()
+               if p.grad is not None)
 
 
 def test_train_step_cuda_matches_cpu(cuda_device):

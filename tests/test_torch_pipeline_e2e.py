@@ -16,7 +16,6 @@ the planned (anisotropic) topology held against the JAX trainer.
   (mirror TTA on and off) -> ensemble -> postprocess -> evaluate."""
 import json
 import os
-import shutil
 import types
 
 import jax
@@ -214,8 +213,6 @@ def test_pipeline_end_to_end_on_cpu(nnunet_env):
         predict_entry_point(["-i", join(raw, "imagesTs"), "-o", out, "-d",
                              ds, "-c", "3d_fullres", "-f", "0",
                              "--save_probabilities", "-device", "cpu"] + tta)
-        for f in ("plans.json", "dataset.json"):  # what the ensemble reads
-            shutil.copy(join(model, f), join(out, f))
         outs.append(out)
     ens = join(root, "ensemble")
     ensemble_entry(["-i", *outs, "-o", ens, "-np", "1"])

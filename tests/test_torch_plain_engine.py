@@ -171,5 +171,5 @@ def test_predict_segmentation_dispatch():
     teng.max_accumulator_bytes = 1 << 40
     logits_seg = teng.predict_segmentation(tree, v)
     assert (logits_seg == seg).mean() >= 0.999
-    with pytest.raises(NotImplementedError):  # 2D-over-slices
+    with pytest.raises(ValueError):  # a 3D patch on a 2D image
         teng.predict_logits(tree, v[:, 0])

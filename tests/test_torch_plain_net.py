@@ -93,11 +93,17 @@ def test_factory_resolves_reference_names_and_raises_for_the_rest():
     for name in ("ResidualEncoderUNet", "LiteResEncStudent"):
         assert isinstance(port_factory.get_network_from_plans(
             name, kw, (), 1, 3), ResidualEncoderUNet)
-    with pytest.raises(NotImplementedError):
+    kw2d = dict(kw, conv_op="torch.nn.Conv2d", kernel_sizes=[[3, 3]] * 3,
+                strides=[[1, 1]] + [[2, 2]] * 2)
+    net2d = port_factory.get_network_from_plans("PlainConvUNet", kw2d, (),
+                                                1, 3)
+    assert net2d.dim == 2 and isinstance(
+        net2d.decoder.mods["seg_head_1"], torch.nn.Conv2d)
+    with pytest.raises(ValueError):   # 1D networks are not nnU-Net's
         port_factory.get_network_from_plans(
-            "PlainConvUNet", dict(kw, conv_op="torch.nn.Conv2d",
-                                  kernel_sizes=[[3, 3]] * 3,
-                                  strides=[[1, 1]] + [[2, 2]] * 2), (), 1, 3)
+            "PlainConvUNet", dict(kw, conv_op="torch.nn.Conv1d",
+                                  kernel_sizes=[[3]] * 3,
+                                  strides=[[1]] + [[2]] * 2), (), 1, 3)
     bn = port_factory.get_network_from_plans(
         "PlainConvUNet", dict(kw, norm_op="torch.nn.BatchNorm3d"), (), 1, 3)
     assert isinstance(bn.encoder.stages["stage_0"].blocks["block_0"].norm,

@@ -152,6 +152,54 @@ def test_chip_smoke_frozen_resenc_l_topology_is_the_planners(pipeline_env):
         == chip_smoke.PIPELINE_RESENC_L
 
 
+@pytest.fixture()
+def cascade_env(tmp_path, monkeypatch):
+    """chip_smoke.py phase 13's dataset as a fingerprint: 5 CT cases of
+    CASCADE_CASE voxels at CASCADE_SPACING, 61 labels, nothing cropped."""
+    ds = chip_smoke.CASCADE_DS
+    raw = tmp_path / "raw" / ds
+    pre = tmp_path / "pre" / ds
+    (raw / "imagesTr").mkdir(parents=True)
+    pre.mkdir(parents=True)
+    monkeypatch.setenv("nnUNet_raw", str(tmp_path / "raw"))
+    monkeypatch.setenv("nnUNet_preprocessed", str(tmp_path / "pre"))
+    monkeypatch.setenv("nnUNet_results", str(tmp_path / "res"))
+    n = chip_smoke.PIPELINE_N_TRAIN
+    dj = {"channel_names": {"0": "CT"},
+          "labels": {("background" if i == 0 else f"bone_{i}"): i
+                     for i in range(chip_smoke.TRAIN_K)},
+          "numTraining": n, "file_ending": ".nii.gz"}
+    (raw / "dataset.json").write_text(json.dumps(dj))
+    for i in range(n):
+        (raw / "imagesTr" / f"case_{i:03d}_0000.nii.gz").write_bytes(b"")
+    fp = {"spacings": [list(chip_smoke.CASCADE_SPACING)] * n,
+          "shapes_after_crop": [list(chip_smoke.CASCADE_CASE)] * n,
+          "median_relative_size_after_cropping": 1.0,
+          "foreground_intensity_properties_per_channel": {"0": {
+              "mean": 512.5, "std": 171.2, "percentile_00_5": 240.0,
+              "percentile_99_5": 790.0, "median": 505.0, "min": 200.0,
+              "max": 820.0}}}
+    (pre / "dataset_fingerprint.json").write_text(json.dumps(fp))
+    return ds
+
+
+def test_chip_smoke_frozen_cascade_topologies_are_the_planners(cascade_env):
+    """chip_smoke.CASCADE_PLANS (phase 13: 2d, 3d_fullres, 3d_lowres and
+    3d_cascade_fullres) are what both planners give for the smoke run's CT
+    dataset of 48 slices of 512 x 512 at 2.5 x 0.8 x 0.8 mm; the whole plans
+    are equal too, the lowres
+    stage names the cascade as its next stage and the cascade inherits
+    3d_fullres."""
+    pp, jp, pt, jt = _plan_both(cascade_env)
+    assert pp == jp and pt == jt
+    assert chip_smoke.cascade_topologies(pp) == chip_smoke.CASCADE_PLANS
+    cfgs = pp["configurations"]
+    assert sorted(cfgs) == sorted(chip_smoke.CASCADE_CONFIGS)
+    assert cfgs["3d_lowres"]["next_stage"] == "3d_cascade_fullres"
+    assert cfgs["3d_cascade_fullres"] == {"inherits_from": "3d_fullres",
+                                          "previous_stage": "3d_lowres"}
+
+
 @pytest.mark.parametrize("planner", ["ResEncUNetPlanner",
                                      "nnUNetPlannerResEncM",
                                      "nnUNetPlannerResEncL",

@@ -151,13 +151,16 @@ def test_host_stages_and_logits_match_jax(predictor):
 
 
 def test_not_ported_inputs_raise(predictor, tmp_path):
-    """Cascade input and Primus checkpoints raise NotImplementedError; with
-    no card, the default device raises instead of falling back."""
+    """Primus checkpoints raise NotImplementedError; a previous stage's
+    segmentation given to a configuration that is not a cascade stage, or
+    missing for one that is, raises ValueError (the cascade stage itself is
+    rebuilt with 1 + K - 1 input channels); with no card, the default
+    device raises instead of falling back."""
     import json
     import pickle
     from fast_nnunet_tpu_torch.training.checkpoint import load_checkpoint
     data, props = NiftiIO().read_images([INPUT])
-    with pytest.raises(NotImplementedError):  # cascade input
+    with pytest.raises(ValueError, match="previous stage"):
         predictor.predict_single_npy_array(data, props,
                                            segmentation_previous_stage=data)
     model = tmp_path / "model"
@@ -176,8 +179,10 @@ def test_not_ported_inputs_raise(predictor, tmp_path):
     del ckpt["init_args"]["primus_arch"]
     with open(ckpt_path, "wb") as f:
         pickle.dump(ckpt, f)
-    with pytest.raises(NotImplementedError):  # cascade stage
-        p.initialize_from_trained_model_folder(str(model), use_folds=[0])
+    p.initialize_from_trained_model_folder(str(model), use_folds=[0])
+    assert p.network.input_channels == p.label_manager.num_segmentation_heads
+    with pytest.raises(ValueError, match="previous stage"):  # cascade stage
+        p.predict_single_npy_array(data, props)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # the card is the default device
             NNUNetPredictor()

@@ -293,3 +293,27 @@ def test_modify_seg_fn_hook_runs_on_every_case(raw_ds):
     after = np.load(os.path.join(folder, "case_000_seg.npy"))
     assert set(np.unique(before)) >= {0, 1, 2}
     np.testing.assert_array_equal(after, np.where(before > 0, 2, before))
+
+
+@pytest.mark.parametrize("is_seg,cur,new,shape", [
+    (False, [2.5, 1.14, 1.14], [2.5, 1.14, 1.14], (9, 20, 20)),  # 3-D zoom
+    (False, [2.5, 1.14, 1.14], [2.5, 0.8, 0.8], (9, 20, 20)),  # per plane
+    (False, [4.0, 1.0, 1.0], [1.5, 1.0, 1.0], (24, 11, 13)),  # + z step
+    (True, [4.0, 1.0, 1.0], [1.5, 0.8, 0.8], (24, 14, 16)),   # label-safe
+])
+def test_multichannel_resampling_bit_equal_jax(is_seg, cur, new, shape):
+    """A prediction's classes resample in threads, one channel each: the
+    result equals the JAX package's serial loop bit for bit, on the 3-D,
+    the separate-z (with and without a z step) and the label-safe path."""
+    from fast_nnunet_tpu.ops.resampling import \
+        resample_data_or_seg_to_shape as jax_resample
+    from fast_nnunet_tpu_torch.ops.resampling import \
+        resample_data_or_seg_to_shape
+    rng = np.random.RandomState(7)
+    x = (rng.randint(0, 4, (7, 9, 10, 11)).astype(np.int16) if is_seg else
+         rng.randn(7, 9, 10, 11).astype(np.float32))
+    kw = dict(is_seg=is_seg, order=1, order_z=0, force_separate_z=None)
+    got = resample_data_or_seg_to_shape(x, shape, cur, new, **kw)
+    ref = jax_resample(x, shape, cur, new, **kw)
+    assert got.dtype == ref.dtype and got.shape == (7, *shape)
+    np.testing.assert_array_equal(got, ref)

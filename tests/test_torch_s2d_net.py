@@ -12,6 +12,7 @@ import torch
 from fast_nnunet_tpu.models import s2d as jax_s2d
 from fast_nnunet_tpu.models.factory import get_network_from_plans
 from fast_nnunet_tpu_torch.models import s2d as port_s2d
+from fast_nnunet_tpu_torch.models import unet as port_unet
 
 from .torch_port_common import (ARCH, K, PATCH,  # noqa: F401  (fixture)
                                 ncdhw, no_persistent_compile_cache,
@@ -120,7 +121,7 @@ def test_transposed_conv_flip_matches_lax():
     ref = jax.lax.conv_transpose(jnp.asarray(x), jnp.asarray(kern),
                                  (2, 2, 2), "VALID",
                                  dimension_numbers=("NHWDC", "HWDIO", "NHWDC"))
-    w = torch.from_numpy(port_s2d._transpconv_weight(kern))
+    w = torch.from_numpy(port_unet.from_flax_layout("transpconv", kern))
     got = torch.nn.functional.conv_transpose3d(ncdhw(x), w, stride=2)
     np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1),
                                np.asarray(ref), atol=1e-5)
@@ -135,7 +136,7 @@ def test_downsample_pad_matches_lax():
     ref = jax.lax.conv_general_dilated(
         jnp.asarray(x), jnp.asarray(kern), (1, 1, 1),
         ((1, 0), (1, 0), (1, 0)), dimension_numbers=("NHWDC", "HWDIO", "NHWDC"))
-    w = torch.from_numpy(port_s2d._conv_weight(kern))
+    w = torch.from_numpy(port_unet.from_flax_layout("conv", kern))
     got = torch.nn.functional.conv3d(
         torch.nn.functional.pad(ncdhw(x), (1, 0, 1, 0, 1, 0)), w)
     np.testing.assert_allclose(np.moveaxis(got.numpy(), 1, -1),

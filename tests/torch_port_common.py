@@ -84,3 +84,24 @@ def bf16_ulp(x: np.ndarray) -> np.ndarray:
     """Spacing of bfloat16 numbers at |x| (8 significant bits)."""
     a = np.maximum(np.abs(np.asarray(x, np.float64)), np.finfo(np.float32).tiny)
     return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def jax_predictor_f32(model_folder: str, folds, num_input_channels: int,
+                      num_classes: int):
+    """The JAX package's predictor on a trained model folder with float32
+    networks and a float32 sliding window (its own build is bfloat16),
+    mirroring off: the reference that the port's float32 predictor is held
+    to at atol 3e-4 on the logits."""
+    import jax.numpy as jnp
+    from fast_nnunet_tpu.inference.predictor import NNUNetPredictor
+    from fast_nnunet_tpu.models.factory import build_network_from_arch_dict
+    jp = NNUNetPredictor(use_mirroring=False)
+    jp.initialize_from_trained_model_folder(model_folder, use_folds=folds)
+    arch = jp.configuration_manager.configuration["architecture"]
+    jp.manual_initialization(
+        build_network_from_arch_dict(arch, num_input_channels, num_classes,
+                                     dtype=jnp.float32),
+        jp.plans_manager, jp.configuration_manager, jp.list_of_parameters,
+        jp.dataset_json, jp.trainer_name, jp.allowed_mirroring_axes)
+    jp.engine.compute_dtype = jnp.float32
+    return jp
