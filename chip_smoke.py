@@ -139,6 +139,24 @@ the card. Run from the repository root:
    Dice); a narrow 2D PlainConvUNet, a narrow 2D ResidualEncoderUNet and a
    narrow cascade step with one-hot input, cuda vs cpu as in 10. One
    ``{"cascade": ...}`` line.
+14. Export and the fast-inference module (``fast_inference:``): the
+   bone_turbo r = 2 student (features 16..160, 61 classes, seeded random
+   weights) as a ``NNUNetDistillationTrainer`` fold-0 checkpoint with its
+   plans (patch 160x96x96, the INI's spacing and CT normalisation);
+   ``export_model_folder_to_artifact`` on the card, bf16, B = 8, validated
+   (max relative deviation <= 1e-2), and the ``--tta`` artifact (validated);
+   ``FastnnUNetAPI`` over the artifact on 127.0.0.1 (``/health`` polled):
+   ``/model_info``; ``/predict`` of a 512x512xN int16 CT at 0.8x0.8x1.0 mm
+   (N = FAST_CT_SLICES) with postprocessing, split into host steps and
+   device phases, its mask of the input's shape, spacing and affine with
+   labels in 0..60, and before postprocessing in >= 0.999 agreement with
+   the model-folder route's (``FastnnUNetInferencer(model_folder=...)``);
+   ``/predict_array`` of a 160x192x192 f32 volume (1.44 GB of logits
+   back), bit-equal to ``predict_logits_from_preprocessed`` in process;
+   ``/predict`` with VTK on a 64^3 CT; ``/predict_batch`` over two;
+   ``fast_nnunet_jhu_predict_torch`` on one case (60 class files). Prints
+   seconds per request, peak device memory, whether libdeflate loaded, and
+   one ``{"fast_inference": ...}`` line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -547,6 +565,10 @@ def main() -> int:
     # ------------------------------------------- 2d, lowres and the cascade
     cascade_path(torch, dev, a_row)
     mark("2d and 3d_lowres -> 3d_cascade_fullres (phase 13)")
+
+    # ------------------------------------------- export and fast inference
+    fast_inference_path(torch, dev)
+    mark("export and the fast-inference module (phase 14)")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2471,6 +2493,354 @@ def small_train_step(torch, dev, cls="PlainConvUNet", arch=SMALL_ARCH,
     check(loss_rel <= 1e-4 and p_err <= 1e-5,
           f"small {name} cuda vs cpu: loss {loss_rel}, params {p_err}")
     return {"loss_rel": loss_rel, "param_err": p_err, "a_launches": n_k}
+
+
+# ----------------------------------------------- export and fast inference
+FAST_DS = "Dataset991_FastInference"
+FAST_CT_SLICES = 64        # N of the 512 x 512 x N /predict case
+FAST_ARRAY_SHAPE = (160, 192, 192)
+FAST_SMALL_CT = (64, 64, 64)
+
+
+def write_student_model_folder(folder, seed=0):
+    """The bone_turbo r = 2 student as a ``NNUNetDistillationTrainer`` fold-0
+    checkpoint (seeded random weights, written with the port's
+    ``save_checkpoint``) with its plans.json (the teacher's architecture,
+    patch 160x96x96, the INI's target spacing, CT normalisation with the
+    INI's mean, std and bounds) and a 61-label dataset.json."""
+    from fast_nnunet_tpu_torch.models.students import build_lite_student
+    from fast_nnunet_tpu_torch.models.unet import (init_he_normal_,
+                                                   params_to_jax)
+    from fast_nnunet_tpu_torch.training.checkpoint import save_checkpoint
+    from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p, save_json
+
+    ini = configparser.ConfigParser(inline_comment_prefixes=("#", ";"))
+    ini.read(os.path.join(HERE, "engine", "config",
+                          "fast_nnunet_bone_turbo.ini"))
+    pp = ini["preprocessing"]
+    rs = "resample_data_or_seg_to_shape"
+    plans = {
+        "dataset_name": FAST_DS, "plans_name": "nnUNetPlans",
+        "image_reader_writer": "NiftiIO",
+        "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+        "foreground_intensity_properties_per_channel": {"0": {
+            "mean": pp.getfloat("mean"), "std": pp.getfloat("std"),
+            "percentile_00_5": pp.getfloat("lower_bound"),
+            "percentile_99_5": pp.getfloat("upper_bound")}},
+        "configurations": {"3d_fullres": {
+            "data_identifier": "nnUNetPlans_3d_fullres", "batch_size": 2,
+            "patch_size": list(TRAIN_PATCH), "spacing": TRAIN_SPACING,
+            "normalization_schemes": ["CTNormalization"],
+            "use_mask_for_norm": [False],
+            "resampling_fn_data": rs,
+            "resampling_fn_data_kwargs": {"is_seg": False, "order": 3,
+                                          "order_z": 0,
+                                          "force_separate_z": None},
+            "resampling_fn_seg": rs,
+            "resampling_fn_seg_kwargs": {"is_seg": True, "order": 1,
+                                         "order_z": 0,
+                                         "force_separate_z": None},
+            "resampling_fn_probabilities": rs,
+            "resampling_fn_probabilities_kwargs": {
+                "is_seg": False, "order": 1, "order_z": 0,
+                "force_separate_z": None},
+            "architecture": TRAIN_ARCH, "batch_dice": False}}}
+    dataset_json = {
+        "name": FAST_DS, "numTraining": 0, "file_ending": ".nii.gz",
+        "channel_names": {"0": "CT"},
+        "labels": {"background": 0,
+                   **{f"bone_{c}": c for c in range(1, TRAIN_K)}}}
+    net = build_lite_student(TRAIN_ARCH["network_class_name"],
+                             TRAIN_ARCH["arch_kwargs"], 1, TRAIN_K, 2,
+                             trainable=True)
+    maybe_mkdir_p(os.path.join(folder, "fold_0"))
+    save_json(plans, os.path.join(folder, "plans.json"))
+    save_json(dataset_json, os.path.join(folder, "dataset.json"))
+    save_checkpoint(os.path.join(folder, "fold_0", "checkpoint_final.fnnx"),
+                    network_weights=params_to_jax(init_he_normal_(net, seed)),
+                    init_args={"configuration": "3d_fullres", "fold": 0,
+                               "feature_reduction_factor": 2},
+                    trainer_name="NNUNetDistillationTrainer",
+                    inference_allowed_mirroring_axes=[0, 1, 2])
+
+
+def write_ct(fname, shape, seed):
+    """A synthetic int16 CT (utils/synthetic_ct.py) of (i, j, k) ``shape``
+    at 0.8 x 0.8 x 1.0 mm, written through the port's NIfTI writer."""
+    from fast_nnunet_tpu_torch.imageio.nifti import write_nifti
+    from fast_nnunet_tpu_torch.utils.synthetic_ct import make_synthetic_ct
+    ct, spacing = make_synthetic_ct(shape, (0.8, 0.8, 1.0), seed=seed)
+    write_nifti(fname, ct, spacing=spacing)
+
+
+def fast_inference_path(torch, dev, n_slices=FAST_CT_SLICES):
+    """Phase 14 (``fast_inference:``): export and the fast-inference module
+    at full width (docstring step 14). Everything it starts it stops."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_fast_inference_")
+    try:
+        return _fast_inference(torch, dev, root, n_slices)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _http(port, method, path, body=None, headers=None, timeout=900):
+    """(status, headers, body bytes) of one request to the local server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _fast_inference(torch, dev, root, n_slices):
+    import shutil
+    import socket
+    import numpy as np
+    from fast_nnunet_tpu_torch.export.export_model import \
+        export_model_folder_to_artifact
+    from fast_nnunet_tpu_torch.fast_inference import \
+        inferencer as inferencer_module
+    from fast_nnunet_tpu_torch.fast_inference.inferencer import \
+        FastnnUNetInferencer
+    from fast_nnunet_tpu_torch.fast_inference.rest_api import FastnnUNetAPI
+    from fast_nnunet_tpu_torch.imageio.nifti import (NiftiIOWithReorient,
+                                                     read_nifti)
+    from fast_nnunet_tpu_torch.inference.engine import PhaseTimer
+    from fast_nnunet_tpu_torch.inference.jhu_predictor import \
+        jhu_predict_entry
+    from fast_nnunet_tpu_torch.utils import fastgz
+    from fast_nnunet_tpu_torch.utils.io import join, load_json, maybe_mkdir_p
+
+    t_phase = time.perf_counter()
+    out = {"libdeflate": fastgz.available()}
+    print(f"fast_inference: libdeflate loaded: {out['libdeflate']} (NIfTI "
+          f"gzip through {'libdeflate' if out['libdeflate'] else 'stdlib'})")
+    model = join(root, "model")
+    t0 = time.perf_counter()
+    write_student_model_folder(model)
+    print(f"fast_inference: r = 2 student fold 0 (seeded random weights, "
+          f"{TRAIN_K} classes, patch {TRAIN_PATCH}) written in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # ---- export: bf16, B = 8, validated; and the --tta artifact
+    exports = {}
+    for name, tta in (("export", False), ("export_tta", True)):
+        st = {}
+        export_model_folder_to_artifact(model, 0, join(root, name),
+                                        batch_size=8, dtype="bfloat16",
+                                        bake_mirroring=tta, device=dev,
+                                        stats=st)
+        exports[name] = st
+        print(f"fast_inference: {name} (bf16, B = 8, {str(dev)}): export "
+              f"{st['export_s']:.3f} s, validation {st['validate_s']:.3f} s, "
+              f"max relative deviation {st['max_rel']:.3e} (bound 1e-2)")
+        check(st["max_rel"] <= 1e-2, f"{name} deviates {st['max_rel']}")
+    meta = load_json(join(root, "export", "model_config.json"))
+    check(meta["input_shape"] == [8, 1, *TRAIN_PATCH]
+          and meta["device"] == str(dev) and meta["artifact"] == "model.pt2",
+          f"sidecar {meta['input_shape']} {meta['device']}")
+    check(load_json(join(root, "export_tta", "model_config.json"))[
+        "mirroring_baked_into_artifact"] is True, "tta sidecar")
+    out["exports"] = exports
+
+    # ---- serve the artifact
+    torch.cuda.reset_peak_memory_stats()
+    inferencer = FastnnUNetInferencer(
+        config_file=join(root, "export", "model_config.json"), device=dev)
+    check(inferencer.engine.tile_batch == 8
+          and inferencer.engine.pad_to_tile_batch
+          and inferencer.engine.mirror_axes == (), "artifact engine")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    api = FastnnUNetAPI(inferencer, "127.0.0.1", port)
+    thread = api.run(blocking=False)
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                code, _, body = _http(port, "GET", "/health", timeout=5)
+                if code == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < 30, "server did not come up")
+            time.sleep(0.05)
+        walls["health"] = time.perf_counter() - t0
+        check(json.loads(body) == {"status": "ok"}, f"/health {body!r}")
+        t0 = time.perf_counter()
+        code, _, body = _http(port, "GET", "/model_info")
+        walls["model_info"] = time.perf_counter() - t0
+        info = json.loads(body)
+        check(code == 200 and info["source"] == "artifact"
+              and info["num_classes"] == TRAIN_K, f"/model_info {info}")
+
+        # /predict: a 512 x 512 x N CT with largest-component postprocessing
+        big = join(root, "ct_big.nii.gz")
+        write_ct(big, (512, 512, n_slices), seed=0)
+        seg_art = join(root, "out_artifact", "ct_big.nii.gz")
+        maybe_mkdir_p(os.path.dirname(seg_art))
+        inferencer.engine.timer = PhaseTimer()
+        pre_pp = []  # the artifact route's mask before postprocessing
+        real_pp = inferencer_module.\
+            remove_all_but_largest_component_from_segmentation
+
+        def keep_input(seg, labels, *args, **kwargs):
+            pre_pp.append(np.array(seg))
+            return real_pp(seg, labels, *args, **kwargs)
+
+        inferencer_module.remove_all_but_largest_component_from_segmentation \
+            = keep_input
+        t0 = time.perf_counter()
+        try:
+            code, _, body = _http(port, "POST", "/predict", json.dumps({
+                "input_file": big, "output_file": seg_art,
+                "postprocessing": True}).encode())
+        finally:
+            inferencer_module.\
+                remove_all_but_largest_component_from_segmentation = real_pp
+        walls["predict"] = time.perf_counter() - t0
+        phases = inferencer.engine.timer.totals()
+        inferencer.engine.timer = None
+        host = dict(inferencer.timings)
+        check(code == 200, f"/predict {code} {body[:300]!r}")
+        res = json.loads(body)
+        print(f"fast_inference: /predict 512 x 512 x {n_slices} CT "
+              f"(postprocessing) {walls['predict']:.3f} s wall, server "
+              f"{res['seconds']} s; host steps "
+              + json.dumps({k: round(v, 3) for k, v in host.items()})
+              + "; device phases ms (CUDA events) "
+              + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+        img, hdr_in = read_nifti(big)
+        seg, hdr_out = read_nifti(seg_art)
+        same_geometry = (seg.shape == img.shape and all(
+            np.allclose(hdr_in[k], hdr_out[k]) for k in
+            ("pixdim", "srow_x", "srow_y", "srow_z")))
+        labels = np.unique(seg)
+        check(same_geometry and labels.min() >= 0
+              and labels.max() < TRAIN_K, f"/predict mask {seg.shape} "
+              f"labels {labels.min()}..{labels.max()}")
+
+        # the model-folder route on the same case, same bf16 network, held
+        # against the artifact route's mask before postprocessing
+        check(len(pre_pp) == 1, "postprocessing input not captured")
+        t0 = time.perf_counter()
+        folder_inf = FastnnUNetInferencer(model_folder=model, folds=(0,),
+                                          device=dev)
+        seg_fold = join(root, "out_folder", "ct_big.nii.gz")
+        maybe_mkdir_p(os.path.dirname(seg_fold))
+        folder_inf.predict_single_image(big, seg_fold)
+        walls["model_folder"] = time.perf_counter() - t0
+        fold_seg = NiftiIOWithReorient().read_seg(seg_fold)[0][0]
+        agree = float((fold_seg == pre_pp[0]).mean())
+        del folder_inf, fold_seg, pre_pp
+        print(f"fast_inference: model-folder route (no postprocessing) "
+              f"{walls['model_folder']:.3f} s; artifact vs model-folder "
+              f"mask agreement {agree:.6f} on {seg.shape}, {len(labels)} "
+              f"labels present after postprocessing")
+        check(agree >= 0.999, f"artifact / model-folder agreement {agree}")
+        out["agreement"] = agree
+        del img, seg
+
+        # /predict_array: one preprocessed f32 volume, logits back
+        vol = np.random.RandomState(1).randn(*FAST_ARRAY_SHAPE).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        code, hdrs, body = _http(port, "POST", "/predict_array", vol.tobytes(),
+                                 {"X-Shape": ",".join(map(str, vol.shape)),
+                                  "Content-Type": "application/octet-stream"})
+        walls["predict_array"] = time.perf_counter() - t0
+        check(code == 200 and int(hdrs["X-Num-Class"]) == TRAIN_K,
+              f"/predict_array {code} {hdrs}")
+        served = np.frombuffer(body, np.float32).reshape(
+            TRAIN_K, *FAST_ARRAY_SHAPE)
+        t0 = time.perf_counter()
+        local = inferencer.predict_logits_from_preprocessed(vol[None])
+        walls["in_process_logits"] = time.perf_counter() - t0
+        bit_equal = bool(np.array_equal(served.view(np.uint32),
+                                        local.view(np.uint32)))
+        print(f"fast_inference: /predict_array {FAST_ARRAY_SHAPE} f32 -> "
+              f"{len(body) / 1e9:.3f} GB of logits in "
+              f"{walls['predict_array']:.3f} s (in process "
+              f"{walls['in_process_logits']:.3f} s); bit-equal to the "
+              f"in-process logits: {bit_equal}")
+        check(bit_equal and np.isfinite(local).all(),
+              "/predict_array differs from predict_logits_from_preprocessed")
+        del served, local, body
+
+        # /predict with VTK on a small CT
+        small = join(root, "ct_small.nii.gz")
+        write_ct(small, FAST_SMALL_CT, seed=1)
+        vtk_out = join(root, "out_vtk", "ct_small.nii.gz")
+        maybe_mkdir_p(os.path.dirname(vtk_out))
+        t0 = time.perf_counter()
+        code, _, body = _http(port, "POST", "/predict", json.dumps({
+            "input_file": small, "output_file": vtk_out,
+            "generate_vtk": True}).encode())
+        walls["predict_vtk"] = time.perf_counter() - t0
+        res = json.loads(body)
+        check(code == 200 and "vtk_model" in res, f"/predict vtk {res}")
+        with open(res["vtk_model"]) as f:
+            head = f.read(64)
+        vtk_bytes = os.path.getsize(res["vtk_model"])
+        print(f"fast_inference: /predict {FAST_SMALL_CT} CT with VTK "
+              f"{walls['predict_vtk']:.3f} s (VTK "
+              f"{inferencer.timings.get('vtk_s', float('nan')):.3f} s, "
+              f"{vtk_bytes} B, {len(res['labels_present'])} labels)")
+        check(head.startswith("# vtk DataFile"), f"vtk header {head!r}")
+
+        # /predict_batch over a folder of two small CTs
+        batch_in, batch_out = join(root, "batch_in"), join(root, "batch_out")
+        maybe_mkdir_p(batch_in)
+        for i in range(2):
+            write_ct(join(batch_in, f"case_{i}.nii.gz"), FAST_SMALL_CT,
+                     seed=2 + i)
+        t0 = time.perf_counter()
+        code, _, body = _http(port, "POST", "/predict_batch", json.dumps({
+            "input_folder": batch_in, "output_folder": batch_out}).encode())
+        walls["predict_batch"] = time.perf_counter() - t0
+        results = json.loads(body).get("results", [])
+        check(code == 200 and len(results) == 2 and all(
+            os.path.isfile(r["output"]) for r in results),
+            f"/predict_batch {code} {body[:300]!r}")
+    finally:
+        api.shutdown()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread still running")
+    peak = torch.cuda.max_memory_allocated()
+    del inferencer
+
+    # ---- fast_nnunet_jhu_predict_torch on the same model folder, one case
+    jhu_in, jhu_out = join(root, "jhu_in"), join(root, "jhu_out")
+    maybe_mkdir_p(join(jhu_in, "case_0"))
+    shutil.copyfile(small, join(jhu_in, "case_0", "ct.nii.gz"))
+    t0 = time.perf_counter()
+    jhu_predict_entry([jhu_in, jhu_out, "-model", model, "-f", "0",
+                       "--device", str(dev)])
+    walls["jhu"] = time.perf_counter() - t0
+    files = sorted(os.listdir(join(jhu_out, "case_0", "predictions")))
+    print(f"fast_inference: fast_nnunet_jhu_predict_torch (mirror TTA) on "
+          f"one {FAST_SMALL_CT} case: {len(files)} class files in "
+          f"{walls['jhu']:.3f} s")
+    check(len(files) == TRAIN_K - 1, f"JHU wrote {len(files)} class files")
+
+    out.update(walls_s=walls, predict_host_s=host, predict_device_ms=phases,
+               peak_gib=peak / 2**30, n_slices=n_slices,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"fast_inference: seconds per request "
+          + json.dumps({k: round(v, 3) for k, v in walls.items()})
+          + f"; peak device memory while serving {peak / 2**30:.2f} GiB; "
+          f"phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"fast_inference": out}))
+    return out
 
 
 if __name__ == "__main__":

@@ -17,7 +17,12 @@ training (``training``, ``run.run_training``, ``run.distillation_train``);
 and nnU-Net's host steps around them — ``planning`` (fingerprint, planners),
 ``preprocessing``, ``run.plan_and_preprocess``, ``postprocessing``,
 ``ensembling``, ``evaluation`` and ``run.evaluate`` (numpy/scipy, no
-device). Kernel sources live in ``csrc/`` and are built by ``ops._build``
+device); nnU-Net's 2d, 3d_lowres and cascade configurations; export
+(``export.export_model``, a ``torch.export`` artifact with its JSON
+sidecar) and the fast-inference module (``fast_inference``: the
+inferencer, its REST API and VTK export), the JHU predictor, the inference
+data iterators and the libdeflate NIfTI codec (``utils.fastgz``). Kernel
+sources live in ``csrc/`` and are built by ``ops._build``
 at first use. Every entry point that uses the card runs on ``cuda`` unless
 the caller passes ``device="cpu"``.
 """

@@ -1,7 +1,9 @@
 """Self-contained NIfTI-1 I/O in pure numpy: the read/write pieces of
 fast_nnunet_tpu/imageio/nifti.py that ``TurboPipeline.predict_file`` uses
-(``NiftiIOWithReorient`` and what it builds on), copied, with the stdlib
-``gzip``/``zlib`` in place of the JAX package's libdeflate binding.
+(``NiftiIOWithReorient`` and what it builds on), copied. ``.gz`` files go
+through the libdeflate binding (``utils/fastgz.py``) as in the JAX package:
+a one-shot read, and a write of two gzip members at ``FNN_GZIP_LEVEL``;
+without the library both fall back to stdlib gzip.
 
 Axis convention: on-disk NIfTI data is Fortran-ordered (i fastest). Arrays are
 exposed as (k, j, i) with spacing (pixdim3, pixdim2, pixdim1) — the reversal
@@ -16,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import fastgz
+
 _DTYPE_BY_CODE = {
     2: np.uint8, 4: np.int16, 8: np.int32, 16: np.float32, 64: np.float64,
     256: np.int8, 512: np.uint16, 768: np.uint32, 1024: np.int64,
@@ -27,11 +31,16 @@ HEADER_SIZE = 348
 
 
 def _read_payload(fname: str) -> np.ndarray:
-    with open(fname, "rb") as f:
-        raw = f.read()
+    """Whole file -> decompressed bytes as a uint8 array (libdeflate's
+    one-shot decompress, else stdlib gzip)."""
     if fname.endswith(".gz"):
-        raw = gzip.decompress(raw)
-    return np.frombuffer(raw, np.uint8)
+        with open(fname, "rb") as f:
+            raw = f.read()
+        dec = fastgz.gzip_decompress(raw)
+        if dec is None:  # no libdeflate on this host
+            dec = np.frombuffer(gzip.decompress(raw), np.uint8)
+        return dec
+    return np.fromfile(fname, np.uint8)
 
 
 def read_nifti(fname: str) -> Tuple[np.ndarray, dict]:
@@ -159,14 +168,25 @@ def write_nifti(fname: str, data: np.ndarray, header: Optional[dict] = None,
     hdr[344:348] = b"n+1\x00"
 
     flat = np.asfortranarray(data).reshape(-1, order="F").view(np.uint8)
+    head = bytes(hdr) + b"\x00\x00\x00\x00"
     if fname.endswith(".gz"):
         level = int(os.environ.get("FNN_GZIP_LEVEL", 1))
+        # two gzip members (header + offset, then the voxels read in place):
+        # concatenated members are standard gzip, and the payload is never
+        # copied into one buffer with the header
+        b1 = fastgz.gzip_compress(np.frombuffer(head, np.uint8), level)
+        b2 = fastgz.gzip_compress(flat, level)
+        if b1 is not None and b2 is not None:
+            with open(fname, "wb") as f:
+                f.write(b1)
+                f.write(b2)
+            return
         with gzip.open(fname, "wb", compresslevel=level) as f:
-            f.write(bytes(hdr) + b"\x00\x00\x00\x00")
+            f.write(head)
             f.write(flat)
         return
     with open(fname, "wb") as f:
-        f.write(bytes(hdr) + b"\x00\x00\x00\x00")
+        f.write(head)
         f.write(flat.tobytes())
 
 

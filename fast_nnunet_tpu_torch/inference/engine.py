@@ -127,7 +127,9 @@ class SlidingWindowEngine:
     kernel D, on the quantised grid with disjoint same-coset batches where
     the patch allows 16-aligned strides, else on the reference grid (off by
     default, as in JAX; ``predict_logits`` keeps the plain route either
-    way, as there)."""
+    way, as there). pad_to_tile_batch: every forward gets exactly
+    ``tile_batch`` tiles, short batches padded with zero-valid repeats of
+    the last tile (an exported artifact has a fixed batch dimension)."""
 
     def __init__(self, network, patch_size: Sequence[int], num_classes: int,
                  tile_step_size: float = 0.5, use_gaussian: bool = True,
@@ -137,7 +139,8 @@ class SlidingWindowEngine:
                  sweep_acc_dtype: Optional[torch.dtype] = None,
                  shape_bucket: int = 32, tile_batch: int = 8,
                  max_accumulator_bytes: int = 4 * 1024 ** 3,
-                 use_fused_accumulate: bool = False, device=None):
+                 use_fused_accumulate: bool = False,
+                 pad_to_tile_batch: bool = False, device=None):
         self.network = network
         self.is_s2d = isinstance(network, s2d_model.S2DPlainConvUNet)
         self.patch_size = tuple(int(p) for p in patch_size)
@@ -157,6 +160,7 @@ class SlidingWindowEngine:
         self.tile_batch = max(1, int(tile_batch))
         self.max_accumulator_bytes = int(max_accumulator_bytes)
         self.use_fused_accumulate = bool(use_fused_accumulate)
+        self.pad_to_tile_batch = bool(pad_to_tile_batch)
         if self.use_fused_accumulate and self.tile_batch > MAX_TILES:
             raise ValueError(f"tile_batch {self.tile_batch}: kernel D takes "
                              f"up to {MAX_TILES} tiles per launch")
@@ -231,9 +235,11 @@ class SlidingWindowEngine:
     def _batched_coords(self, coords: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Pad to a multiple of the batch with copies of the last coord at
-        validity 0; returns (coords (nb, B, dim), valid (nb, B))."""
+        validity 0; returns (coords (nb, B, dim), valid (nb, B)). The batch
+        shrinks to the tile count unless ``pad_to_tile_batch``."""
         n_real = len(coords)
-        B = min(self.tile_batch, max(1, n_real))
+        B = self.tile_batch if self.pad_to_tile_batch \
+            else min(self.tile_batch, max(1, n_real))
         n_tiles = _round_up(n_real, B)
         if n_tiles > n_real:
             coords = np.concatenate(
@@ -360,7 +366,9 @@ class SlidingWindowEngine:
         """Load one JAX-package parameter tree per fold (a tree or a list of
         them) into the network and, from the second fold on, into copies of
         it, unless those trees are the ones loaded already. Returns the fold
-        modules. The s2d network takes one fold."""
+        modules. The s2d network takes one fold. One empty tree (``[{}]``,
+        as the JAX inferencer passes) means the weights are baked into the
+        network, an exported artifact: nothing is loaded."""
         trees = list(params_list) if isinstance(params_list, (list, tuple)) \
             else [params_list]
         if not trees:
@@ -369,7 +377,9 @@ class SlidingWindowEngine:
         if len(trees) == len(loaded) and \
                 all(a is b for a, b in zip(trees, loaded)):
             return nets
-        if self.is_s2d:
+        if len(trees) == 1 and isinstance(trees[0], dict) and not trees[0]:
+            nets = [self.network]
+        elif self.is_s2d:
             if len(trees) != 1:
                 raise NotImplementedError(
                     "fold ensembles on the s2d sweep are not ported yet "
@@ -531,7 +541,9 @@ class SlidingWindowEngine:
         if not bool(torch.isfinite(logits).all()):
             raise RuntimeError("Non-finite values in accumulated logits — "
                                "consider acc_dtype=float32")
-        return logits.permute(3, 0, 1, 2).contiguous().cpu().numpy()
+        logits = logits.permute(3, 0, 1, 2).contiguous()
+        with self.phase("d2h"):
+            return logits.cpu().numpy()
 
     # -------------------------------------------------------- 2D-over-slices
     def _predict_logits_2d_over_slices(self, params_list,
@@ -570,7 +582,7 @@ class SlidingWindowEngine:
                 sweep_acc_dtype=self.sweep_acc_dtype,
                 shape_bucket=self.shape_bucket, tile_batch=self.tile_batch,
                 max_accumulator_bytes=self.max_accumulator_bytes,
-                device=self.device)
+                pad_to_tile_batch=self.pad_to_tile_batch, device=self.device)
         self._slice_eng.timer = self.timer
         return self._slice_eng
 
@@ -655,10 +667,12 @@ class SlidingWindowEngine:
             local = tuple(slice(0, v.stop - v.start) for v in valid_sl)
             a = acc[sl][local]
             # classes first on the card: the host adds contiguous blocks
-            acc_np = a[..., :K].permute(3, 0, 1, 2).to(t_host).contiguous(
-            ).cpu().numpy()
+            acc_t = a[..., :K].permute(3, 0, 1, 2).to(t_host).contiguous()
+            w_t = a[..., K].float()
+            with self.phase("d2h"):
+                acc_np, w_np = acc_t.cpu().numpy(), w_t.cpu().numpy()
             out[(slice(None),) + valid_sl] += acc_np
-            wtot[valid_sl] += a[..., K].float().cpu().numpy()
+            wtot[valid_sl] += w_np
 
         # finalize in x-slabs so a memmap-backed `out` never fully
         # materializes

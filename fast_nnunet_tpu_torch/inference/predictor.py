@@ -45,6 +45,37 @@ from .export import (
     export_prediction_from_logits)
 
 
+def network_for_checkpoint(plans_manager: PlansManager, dataset_json: dict,
+                           checkpoint: dict, compute_dtype: torch.dtype):
+    """(network, configuration manager) of a checkpoint, the network rebuilt
+    as the checkpoint's trainer built it (no weights loaded): a distilled
+    student at its reduced widths, BatchNorm where the weights carry
+    ``batch_stats``. The predictor and the exporter both build through it."""
+    init_args = checkpoint.get("init_args") or {}
+    trainer_name = checkpoint.get("trainer_name", "NNUNetTrainer")
+    configuration_manager = plans_manager.get_configuration(
+        init_args.get("configuration", "3d_fullres"))
+    num_input_channels = determine_num_input_channels(
+        plans_manager, configuration_manager, dataset_json)
+    k = plans_manager.get_label_manager(dataset_json).num_segmentation_heads
+    arch = configuration_manager.configuration["architecture"]
+    if "batch_stats" in checkpoint["network_weights"]:
+        arch = with_batch_norm(arch)
+    if init_args.get("primus_arch"):
+        raise NotImplementedError("Primus networks are not ported yet")
+    if trainer_name and "Distillation" in trainer_name:
+        network = build_lite_student(
+            arch["network_class_name"], arch["arch_kwargs"],
+            num_input_channels, k,
+            init_args.get("feature_reduction_factor", 2),
+            init_args.get("block_reduction_strategy", "reduce"),
+            compute_dtype=compute_dtype)
+    else:
+        network = build_network_from_arch_dict(
+            arch, num_input_channels, k, compute_dtype)
+    return network, configuration_manager
+
+
 class NNUNetPredictor:
     """compute_dtype: the network's convolution dtype and the tiles' dtype
     (the JAX predictor builds its network in bfloat16). The sweep always
@@ -104,34 +135,11 @@ class NNUNetPredictor:
                                         f"fold_{f}", checkpoint_name))
             first = first or ckpt
             parameters.append(ckpt["network_weights"])
-        trainer_name = first.get("trainer_name", "NNUNetTrainer")
-        init_args = first.get("init_args") or {}
-        configuration_manager = plans_manager.get_configuration(
-            init_args.get("configuration", "3d_fullres"))
-        num_input_channels = determine_num_input_channels(
-            plans_manager, configuration_manager, dataset_json)
-        label_manager = plans_manager.get_label_manager(dataset_json)
-
-        # rebuild the network as the checkpoint's trainer built it
-        arch = configuration_manager.configuration["architecture"]
-        if "batch_stats" in parameters[0]:
-            arch = with_batch_norm(arch)
-        k = label_manager.num_segmentation_heads
-        if init_args.get("primus_arch"):
-            raise NotImplementedError("Primus networks are not ported yet")
-        if trainer_name and "Distillation" in trainer_name:
-            network = build_lite_student(
-                arch["network_class_name"], arch["arch_kwargs"],
-                num_input_channels, k,
-                init_args.get("feature_reduction_factor", 2),
-                init_args.get("block_reduction_strategy", "reduce"),
-                compute_dtype=self.compute_dtype)
-        else:
-            network = build_network_from_arch_dict(
-                arch, num_input_channels, k, self.compute_dtype)
+        network, configuration_manager = network_for_checkpoint(
+            plans_manager, dataset_json, first, self.compute_dtype)
         self.manual_initialization(
             network, plans_manager, configuration_manager, parameters,
-            dataset_json, trainer_name,
+            dataset_json, first.get("trainer_name", "NNUNetTrainer"),
             first.get("inference_allowed_mirroring_axes"))
 
     def manual_initialization(self, network, plans_manager,

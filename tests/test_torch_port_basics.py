@@ -25,6 +25,12 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in banned)
 print(len(names), bad)
 assert not bad, bad
+for n in ("export.export_model", "fast_inference.inferencer",
+          "fast_inference.rest_api", "fast_inference.main",
+          "fast_inference.config_manager", "fast_inference.vtk_export",
+          "inference.jhu_predictor", "inference.data_iterators",
+          "inference.examples", "utils.fastgz"):
+    assert pkg.__name__ + "." + n in names, n
 """
 
 
@@ -33,13 +39,14 @@ def test_port_imports_no_jax():
     ml_dtypes or fast_nnunet_tpu (compared by top-level name exactly:
     fast_nnunet_tpu is a prefix of the port's own name); the training,
     planning, preprocessing, postprocessing, ensembling and evaluation
-    modules count too."""
+    modules count too, and the export, fast-inference, JHU, data-iterator,
+    examples and libdeflate modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 72, res.stdout
+    assert n_modules >= 86, res.stdout
 
 
 def test_resolve_device_never_falls_back():
