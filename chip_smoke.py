@@ -158,6 +158,30 @@ the card. Run from the repository root:
    seconds per request, peak device memory, whether libdeflate loaded, and
    one ``{"fast_inference": ...}`` line.
 
+15. The turbo pipeline's host route and the other serving routes
+   (``host:``), on phase 2's student and CT, right after phase 3: the host
+   library (csrc/host_ops.cpp) built with the host compiler (seconds);
+   ``TurboPipeline(host_preprocess=True, host_revert=True)`` with the INI's
+   settings on its lazy streamed route, a warm run and 3 timed runs (s/CT
+   beside phase 2's), the first counted (kernels A, B and C each launched)
+   and phased (host preprocess seconds over the strips, upload, forward,
+   accumulate, finalize, pack, d2h, unpack + revert), peak memory; the
+   host-preprocessed grid against the device route's (within one bf16 ulp,
+   ulps floored at magnitude 1); the streamed against the fused host route
+   with air skipping off (>= 0.999, differing voxels printed); the host
+   route's mask against phase 2's (>= 0.99); the device route with
+   ``host_revert=True`` (s/CT, the packed mask's d2h beside phase 2's, the
+   card's and the host's revert of one target-grid mask bit-equal); two
+   seeded folds on the device route (s/CT, peak memory, launches: C none,
+   as in JAX) and the tree twice against the tree (>= 0.999). After phase
+   5: the plain engine's streamed and coset sweeps on phase 4's 512^3
+   contract in bf16, one timed run each beside the reference-grid
+   ``predict_segmentation_sweep`` (without kernel D): streamed >= 0.999
+   with it; the coset sweep's tiles are phase 4's quantised grid, and its
+   bf16 agreements with phase 4's mask and the reference grid's are
+   printed; it is held (>= 0.999) with f32 accumulators to the fused
+   sweep batched as its coset rows (the same tiles, forwards and order).
+
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero without it.
@@ -165,6 +189,7 @@ exits non-zero without it.
 import configparser
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -506,16 +531,29 @@ def main() -> int:
 
     # --------------------------------------- kernels at the main path's shapes
     rows = kernel_checks(torch, cap, engine, launches, kb, kc)
-    del cap, engine, pipe, net
+    del cap
     torch.cuda.empty_cache()
     mark("build, s2d main path and its kernels (phases 1-3)")
 
+    # ------------------------------------------- the host route, folds
+    tree2 = net.convert_params(random_plain_params(arch, 1, K, seed=1))
+    host_route_path(torch, pipe, tree, tree2, ct, spacing, seg, wall, phases,
+                    kernels)
+    del engine, pipe, net
+    torch.cuda.empty_cache()
+    mark("host route, host revert and folds (phase 15)")
+
     # ------------------------------------------- plain full-res path, kernel D
-    cap_d, launches_d = plain_main_path(torch, dev, engine_module, K, arch)
+    cap_d, launches_d, seg_d = plain_main_path(torch, dev, engine_module, K,
+                                               arch)
     rows.append(kernel_d_check(torch, cap_d, launches_d))
     del cap_d
     torch.cuda.empty_cache()
     mark("plain path and kernel D (phases 4-5)")
+    plain_sweeps(torch, dev, K, arch, seg_d)
+    del seg_d
+    torch.cuda.empty_cache()
+    mark("plain streamed and coset sweeps (phase 15)")
 
     # ------------------------------------------- training and distillation
     training_paths(torch, dev, next(r for r in rows
@@ -866,7 +904,222 @@ def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):
           f"sample; agreement with the warm-up run's mask {repeat:.6f}")
     check(repeat >= 0.999, f"plain warm-up and counted runs agree only "
           f"{repeat}")
-    return cap["d"], launches
+    return cap["d"], launches, seg
+
+
+def host_route_path(torch, pipe, tree, tree2, ct, spacing, seg_dev,
+                    walls_dev, phases_dev, kernels, runs=3):
+    """Phase 15's serving routes on phase 2's student and CT (``pipe`` is
+    phase 2's device-route pipeline, ``tree`` its weights and ``tree2`` a
+    second fold's, ``seg_dev``, ``walls_dev`` and ``phases_dev`` its
+    counted run's mask, its seconds per CT and its CUDA event phases,
+    ``kernels`` the wrappers whose launches are counted)."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import PhaseTimer
+    from fast_nnunet_tpu_torch.inference.turbo import (TurboPipeline,
+                                                       resize_nearest)
+    from fast_nnunet_tpu_torch.ops import _build
+    from fast_nnunet_tpu_torch.utils import hostops
+
+    engine, cfg = pipe.engine, pipe.config
+    t0 = time.perf_counter()
+    _build.host_library()
+    print(f"host: host library built and loaded in "
+          f"{time.perf_counter() - t0:.3f} s ({_build.host_compiler()} "
+          f"{' '.join(_build.HOST_FLAGS)})")
+
+    def pipeline(**kw):
+        return TurboPipeline(engine, cfg, air_skip=pipe.air_skip,
+                             air_margin_hu=200.0, **kw)
+
+    def timed(p, params, label):
+        """A warm run, then ``runs`` timed runs, the first counted and
+        phased. Returns (mask of the counted run, seconds, phases ms,
+        launches, peak GiB)."""
+        p.predict_volume(params, ct, spacing)
+        for fn in kernels.values():
+            fn.launches = 0
+        engine.timer = PhaseTimer()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mask = p.predict_volume(params, ct, spacing)
+        walls = [time.perf_counter() - t0]
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        phases = engine.timer.totals()
+        host_s = dict(p.host_seconds)
+        engine.timer = None
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for _ in range(runs - 1):
+            t0 = time.perf_counter()
+            p.predict_volume(params, ct, spacing)
+            walls.append(time.perf_counter() - t0)
+        print(f"host: {label}: route {p.route}, seconds per CT "
+              f"{[round(w, 4) for w in walls]} (best {min(walls):.4f}; "
+              f"phase 2's device route {[round(w, 4) for w in walls_dev]}, "
+              f"best {min(walls_dev):.4f}); launches per CT "
+              f"{json.dumps(launches)}; peak {peak:.2f} GiB")
+        print(f"host: {label}: phase ms (CUDA events, counted run) "
+              + json.dumps({k: round(v, 3) for k, v in phases.items()})
+              + "; host s " + json.dumps({k: round(v, 4)
+                                          for k, v in host_s.items()}))
+        check(mask.shape == ct.shape and str(mask.dtype) == "uint8",
+              f"{label}: mask {mask.shape} {mask.dtype}")
+        return mask, walls, phases, launches, peak
+
+    # ---- the host route: lazy, streamed, host revert
+    host = pipeline(host_preprocess=True, host_revert=True)
+    mask, _, _, launches, _ = timed(host, tree, "host route")
+    check(host.route == "streamed", f"host route took {host.route}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the host route")
+    agree = float((mask == seg_dev).mean())
+    print(f"host: host route vs phase 2's device-route mask: agreement "
+          f"{agree:.6f}")
+    check(agree >= 0.99, f"host and device routes agree only {agree}")
+
+    # ---- the preprocessed grid: host C++ against the device route
+    in_shape, new_shape = pipe._geometry(ct[None], spacing)
+    with torch.no_grad():
+        vol, _, _, _ = pipe.preprocess(ct[None], spacing)
+        dev_grid = vol[0][tuple(slice(0, n) for n in new_shape)].float()
+        del vol
+        inv = cfg.transpose_backward
+        bits = hostops.preprocess_ct_i16(
+            ct[None], tuple(new_shape[inv[p]] for p in range(3)),
+            *pipe._ct_scalars())
+        host_grid = torch.from_numpy(bits.view(np.int16)).to(
+            dev_grid.device).view(torch.bfloat16)[0].permute(
+            *cfg.transpose_forward).float()
+        diff = (host_grid - dev_grid).abs()
+        mag = torch.maximum(torch.maximum(host_grid.abs(), dev_grid.abs()),
+                            torch.ones_like(diff))
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        n_diff = int((diff > 0).sum())
+        worst = float((diff / ulp).max())
+        del host_grid, dev_grid, diff, mag, ulp
+    print(f"host: preprocessed grid {tuple(new_shape)} host C++ vs the "
+          f"device route: {n_diff} voxels differ "
+          f"({n_diff / math.prod(new_shape):.6f}), max {worst:.3f} bf16 ulp "
+          f"(ulps floored at magnitude 1)")
+    check(worst <= 1.0, f"host and device grids differ by {worst} ulp")
+
+    # ---- streamed against fused host route, air skipping off
+    masks = {}
+    for stream in ("1", "0"):
+        os.environ["FNN_TURBO_STREAM"] = stream
+        try:
+            p = TurboPipeline(engine, cfg, air_skip=False,
+                              host_preprocess=True)
+            t0 = time.perf_counter()
+            masks[stream] = p.predict_volume(tree, ct, spacing)
+            print(f"host: air skip off, route {p.route}: "
+                  f"{time.perf_counter() - t0:.4f} s")
+        finally:
+            del os.environ["FNN_TURBO_STREAM"]
+    n_diff = int((masks["1"] != masks["0"]).sum())
+    agree = 1.0 - n_diff / masks["1"].size
+    print(f"host: streamed vs fused host route (air skip off): {n_diff} "
+          f"voxels differ, agreement {agree:.6f}")
+    check(agree >= 0.999, f"streamed and fused host routes agree {agree}")
+    del masks
+
+    # ---- the device route with the host revert
+    hrev = pipeline(host_revert=True)
+    _, _, ph, _, _ = timed(hrev, tree, "device route + host revert")
+    print(f"host: packed mask d2h {ph.get('d2h', 0.0):.3f} ms vs phase 2's "
+          f"uint8 mask d2h {phases_dev.get('d2h', 0.0):.3f} ms")
+    with torch.no_grad():
+        vol, new_shape, in_shape, valid = pipe.preprocess(ct[None], spacing)
+        s = engine.run_s2d_sweep(vol, new_shape, valid)[
+            tuple(slice(0, n) for n in new_shape)]
+        del vol
+        on_card = resize_nearest(s, in_shape).cpu().numpy()
+        on_host = hostops.nearest_revert_u8(s.cpu().numpy(), in_shape)
+    same = bool(np.array_equal(on_card, on_host))
+    print(f"host: revert of one {tuple(new_shape)} mask to {tuple(in_shape)}"
+          f": card (resize_nearest) == host (nearest_revert_u8): {same}")
+    check(same, "the card's and the host's reverts differ")
+
+    # ---- two seeded folds on the device route
+    folds = pipeline()
+    _, _, _, launches, _ = timed(folds, [tree, tree2], "two folds")
+    check(launches["grouped_argmax"] > 0 and launches["spatial_sum_sumsq"] > 0
+          and launches["s2d_accumulate"] == 0,
+          f"two folds launched {launches}")
+    twice = folds.predict_volume([tree, tree], ct, spacing)
+    agree = float((twice == seg_dev).mean())
+    print(f"host: [tree, tree] vs tree (phase 2's mask): agreement "
+          f"{agree:.6f}")
+    check(agree >= 0.999, f"[tree, tree] agrees with tree only {agree}")
+    engine.load_params(tree)
+
+
+def plain_sweeps(torch, dev, K, arch, seg_quantised, size=512,
+                 patch=(96, 96, 160)):
+    """Phase 15's plain-engine sweeps on phase 4's contract (the student as
+    a PlainConvUNet, 512^3, bf16, tile batch 8): the reference-grid rolling
+    sweep without kernel D, the streamed sweep and the coset sweep through
+    ``predict_segmentation``, one timed run each; the streamed sweep held
+    to the reference-grid sweep. The coset sweep's tiles are the uniform
+    half-patch grid — phase 4's quantised grid (``seg_quantised``, its
+    mask), not the reference grid — and it rounds its bf16 contributions
+    otherwise than kernel D, so both bf16 agreements are printed; it is
+    held, with f32 accumulators on both sides, to the fused sweep batched
+    as the coset rows are (tile batch = tiles per coset row): the same
+    tiles through the same forwards, added in the same order."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
+                                                        SlidingWindowEngine)
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+
+    net = get_network_from_plans("PlainConvUNet", arch, (), 1, K,
+                                 compute_dtype=torch.bfloat16).to(dev)
+    tree = random_plain_params(arch, 1, K, seed=0)
+    vol = (np.random.RandomState(0).rand(1, size, size, size).astype(
+        np.float32) - 0.5) * 2
+    n_z = int(np.ceil((size - patch[2]) / (patch[2] // 2))) + 1
+    row = (n_z + 1) // 2  # tiles of one coset row at this size
+
+    def run(name, acc_dtype=torch.bfloat16, tile_batch=8, **kw):
+        engine = SlidingWindowEngine(
+            net, patch, K, tile_step_size=0.5, use_gaussian=True,
+            compute_dtype=torch.bfloat16, sweep_acc_dtype=acc_dtype,
+            shape_bucket=32, tile_batch=tile_batch,
+            max_accumulator_bytes=4 * 1024 ** 3, device=dev, **kw)
+        engine.timer = PhaseTimer()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mask = engine.predict_segmentation(tree, vol)
+        wall = time.perf_counter() - t0
+        phases = engine.timer.totals()
+        print(f"host: plain {name}: {wall:.4f} s per volume (one run, "
+              f"includes its first call's allocations); peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
+              f"ms " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+        del engine
+        torch.cuda.empty_cache()
+        return mask
+
+    ref = run("reference-grid sweep")
+    stream = run("streamed sweep", use_streamed_sweep=True)
+    coset = run("coset sweep", use_coset_sweep=True)
+    a_stream = float((stream == ref).mean())
+    print(f"host: plain streamed vs reference-grid sweep {a_stream:.6f}; "
+          f"coset (bf16) vs phase 4's quantised-grid sweep "
+          f"{float((coset == seg_quantised).mean()):.6f}, vs the reference "
+          f"grid {float((coset == ref).mean()):.6f}")
+    check(a_stream >= 0.999, f"streamed sweep agrees only {a_stream}")
+    del ref, stream, coset
+    c32 = run("coset sweep, f32 accumulator", torch.float32,
+              use_coset_sweep=True)
+    d32 = run(f"fused sweep (kernel D), f32 accumulator, tile batch {row}",
+              torch.float32, tile_batch=row, use_fused_accumulate=True)
+    n_diff = int((c32 != d32).sum())
+    a_coset = 1.0 - n_diff / c32.size
+    print(f"host: plain coset vs fused sweep on the same batches (f32 "
+          f"accumulators): {n_diff} voxels differ, agreement {a_coset:.6f}")
+    check(a_coset >= 0.999, f"coset sweep agrees only {a_coset}")
 
 
 def kernel_d_check(torch, cap, launches):

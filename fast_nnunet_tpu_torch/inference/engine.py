@@ -21,9 +21,22 @@ numerics. Ported routes:
   evenly spread grid where the patch is too small for 16-aligned strides;
   otherwise it is the reference grid and the plain per-tile
   read-modify-write.
+- ``predict_segmentation_sweep_streamed`` (``use_streamed_sweep``): the
+  same rolling sweep on the reference grid, the volume uploaded strip by
+  strip on a side stream, the next chunk's strip in flight while the
+  current chunk computes, each chunk's finished rows copied out as they
+  are done.
+- ``predict_segmentation_coset`` (``use_coset_sweep``; step 0.5, even patch
+  dims): the uniform half-patch grid split into 4 cosets per chunk; the
+  tiles of a coset row are disjoint, so each row lands with one dense add
+  into a (rows, K+1, Y, Z) accumulator kept as two half-depth buffers.
 - ``run_s2d_sweep``: the s2d rolling sweep of the turbo path — forward to
   the pre-head s2d features, kernel C (ops/s2d_accumulate.py) per tile
   batch, kernel B (ops/finalize.py) per chunk with a cyclic row origin.
+  With several folds the forward returns the fold-averaged f32 s2d logits
+  and the accumulate is torch ops, as the JAX sweep does in XLA (its Pallas
+  accumulate takes one fold). Its per-chunk body (:class:`S2DChunks`) also
+  runs the turbo pipeline's streamed route.
 - 2D-over-slices: a 2D engine (a 2D network, a 2-entry patch) given a
   (C, D, Y, X) volume predicts every slice with the 2D tile grid. As in the
   JAX engine, the slice index becomes the first tile coordinate of a
@@ -32,11 +45,10 @@ numerics. Ported routes:
   loop and its chunk grid; mirror axes shift by one. A (C, Y, X) image is
   one slice.
 
-Fold ensembles (logits averaged over folds) and mirror TTA (averaged over
-all flip combinations) run in every plain-network forward; the s2d sweep
-takes one fold and no mirroring. 16-bit accumulators get the reference's
-x10 gaussian scaling. The coset and streamed sweeps are not ported (no
-option selects them).
+Fold ensembles (logits averaged over folds) run in every forward; mirror
+TTA (averaged over all flip combinations) in every plain-network forward,
+not on the s2d sweep. 16-bit accumulators get the reference's x10 gaussian
+scaling.
 """
 import contextlib
 import copy
@@ -100,6 +112,92 @@ class PhaseTimer:
         return out
 
 
+class StripUploader:
+    """Host strips to the device on a side stream, through a ring of pinned
+    host buffers: :meth:`put` waits for the copy that last read its slot's
+    buffer, lets ``fill`` write the strip into it and starts the copy;
+    :meth:`take` makes the current stream wait for that copy and returns the
+    device tensor, recorded on the current stream so that its memory is not
+    reused before the work that reads it is done. ``phase`` brackets each
+    copy on the side stream (the engine's timer). On the CPU a strip is a
+    plain tensor."""
+
+    #: strips in flight: two ahead of the one a chunk consumes
+    SLOTS = 3
+
+    def __init__(self, device: torch.device, phase: Callable):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.phase = phase
+        self._bufs: list = [None] * self.SLOTS
+        self._done: list = [None] * self.SLOTS
+        self._n = 0
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+
+    def put(self, shape, dtype: torch.dtype, fill: Callable) -> tuple:
+        """fill(host) writes the strip into ``host`` (shape, dtype)."""
+        if not self.cuda:
+            host = torch.empty(shape, dtype=dtype)
+            fill(host)
+            return host, None
+        slot = self._n % self.SLOTS
+        self._n += 1
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()  # the slot's last copy is done
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        buf = self._bufs[slot]
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            self._bufs[slot] = buf
+        host = buf[:nbytes].view(dtype).view(shape)
+        fill(host)
+        with torch.cuda.stream(self.stream):
+            with self.phase("upload"):
+                dev = host.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._done[slot] = done
+        return dev, done
+
+    def take(self, handle: tuple) -> torch.Tensor:
+        dev, done = handle
+        if done is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            dev.record_stream(current)
+        return dev
+
+
+class RowFetcher:
+    """Device tensors to the host as they are finished: :meth:`put` queues a
+    copy on the current stream into a fresh pinned buffer and records its
+    event; :meth:`results` waits for each copy and returns numpy arrays, in
+    order. On the CPU a piece is copied at once."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._pieces: list = []
+
+    def put(self, t: torch.Tensor) -> None:
+        if not self.cuda:
+            self._pieces.append((t.clone(), None))
+            return
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pieces.append((host, done))
+
+    def results(self) -> List[np.ndarray]:
+        out = []
+        for host, done in self._pieces:
+            if done is not None:
+                done.synchronize()
+            out.append(host.numpy())
+        self._pieces = []
+        return out
+
+
 class _SliceBatchAdapter(torch.nn.Module):
     """A 2D network presented as a 3D one with a 1-extent leading spatial
     axis: tiles (B, C, 1, py, px) squeeze to (B, C, py, px) for the 2D
@@ -129,7 +227,11 @@ class SlidingWindowEngine:
     default, as in JAX; ``predict_logits`` keeps the plain route either
     way, as there). pad_to_tile_batch: every forward gets exactly
     ``tile_batch`` tiles, short batches padded with zero-valid repeats of
-    the last tile (an exported artifact has a fixed batch dimension)."""
+    the last tile (an exported artifact has a fixed batch dimension).
+    use_coset_sweep / use_streamed_sweep: the JAX engine's options of the
+    same names — which sweep ``predict_segmentation`` takes above the
+    accumulator budget (see the module docstring; the streamed sweep not
+    with ``use_fused_accumulate``, as in JAX)."""
 
     def __init__(self, network, patch_size: Sequence[int], num_classes: int,
                  tile_step_size: float = 0.5, use_gaussian: bool = True,
@@ -140,7 +242,9 @@ class SlidingWindowEngine:
                  shape_bucket: int = 32, tile_batch: int = 8,
                  max_accumulator_bytes: int = 4 * 1024 ** 3,
                  use_fused_accumulate: bool = False,
-                 pad_to_tile_batch: bool = False, device=None):
+                 pad_to_tile_batch: bool = False,
+                 use_coset_sweep: bool = False,
+                 use_streamed_sweep: bool = False, device=None):
         self.network = network
         self.is_s2d = isinstance(network, s2d_model.S2DPlainConvUNet)
         self.patch_size = tuple(int(p) for p in patch_size)
@@ -161,6 +265,8 @@ class SlidingWindowEngine:
         self.max_accumulator_bytes = int(max_accumulator_bytes)
         self.use_fused_accumulate = bool(use_fused_accumulate)
         self.pad_to_tile_batch = bool(pad_to_tile_batch)
+        self.use_coset_sweep = bool(use_coset_sweep)
+        self.use_streamed_sweep = bool(use_streamed_sweep)
         if self.use_fused_accumulate and self.tile_batch > MAX_TILES:
             raise ValueError(f"tile_batch {self.tile_batch}: kernel D takes "
                              f"up to {MAX_TILES} tiles per launch")
@@ -366,7 +472,7 @@ class SlidingWindowEngine:
         """Load one JAX-package parameter tree per fold (a tree or a list of
         them) into the network and, from the second fold on, into copies of
         it, unless those trees are the ones loaded already. Returns the fold
-        modules. The s2d network takes one fold. One empty tree (``[{}]``,
+        modules. One empty tree (``[{}]``,
         as the JAX inferencer passes) means the weights are baked into the
         network, an exported artifact: nothing is loaded."""
         trees = list(params_list) if isinstance(params_list, (list, tuple)) \
@@ -379,19 +485,15 @@ class SlidingWindowEngine:
             return nets
         if len(trees) == 1 and isinstance(trees[0], dict) and not trees[0]:
             nets = [self.network]
-        elif self.is_s2d:
-            if len(trees) != 1:
-                raise NotImplementedError(
-                    "fold ensembles on the s2d sweep are not ported yet "
-                    "(pass one fold)")
-            s2d_model.params_from_jax(self.network, trees[0])
-            nets = [self.network]
         else:
             nets = [self.network] + [copy.deepcopy(self.network)
                                      for _ in trees[1:]]
             for net, tree in zip(nets, trees):
-                unet_model.params_from_jax(net, tree)
-                net.eval()  # a BatchNorm predicts with its running averages
+                if self.is_s2d:
+                    s2d_model.params_from_jax(net, tree)
+                else:
+                    unet_model.params_from_jax(net, tree)
+                    net.eval()  # a BatchNorm predicts with running averages
         self._folds = (trees, nets)  # holds the trees: identity stays valid
         return nets
 
@@ -753,6 +855,211 @@ class SlidingWindowEngine:
         seg = self.run_sweep(vol, plan, forward)
         return seg[tuple(slice(0, s) for s in spatial)].cpu().numpy()
 
+    def predict_segmentation_sweep_streamed(self, params_list,
+                                            volume: np.ndarray) -> np.ndarray:
+        """The rolling sweep on the reference grid with the volume uploaded
+        strip by strip (the JAX method's contract): chunk k's slab is
+        vol[starts_x[k] : starts_x[k] + p0), strip k carries the rows new to
+        it and is uploaded two chunks ahead on a side stream while earlier
+        chunks compute; each chunk's finished rows are copied out as it
+        ends. Grid-exact like :meth:`predict_segmentation_sweep` without the
+        fused accumulate, and equal to it. One x start falls back to it."""
+        self._check_dims(volume)
+        nets = self.load_params(params_list)
+        forward = self._tile_step_fn(nets)
+        spatial = tuple(int(s) for s in volume.shape[1:])
+        p0 = self.patch_size[0]
+        x_tight = max(spatial[0], p0)
+        tight_rest = tuple(max(s, p)
+                           for s, p in zip(spatial[1:], self.patch_size[1:]))
+        steps = compute_steps_for_sliding_window(
+            (x_tight, *tight_rest), self.patch_size, self.tile_step_size)
+        starts_x = [int(s) for s in steps[0]]
+        n_starts = len(starts_x)
+        if n_starts == 1:
+            return self.predict_segmentation_sweep(params_list, volume)
+        rolls = [starts_x[k + 1] - starts_x[k] for k in range(n_starts - 1)]
+        coords_yz = tile_coords_from_steps(steps[1:])
+        coords_b, valid_b = self._batched_coords(np.concatenate(
+            [np.zeros((len(coords_yz), 1), np.int32), coords_yz], axis=1))
+        plane = tuple(_round_up(t, self.shape_bucket) for t in tight_rest)
+        K, C = self.num_classes, volume.shape[0]
+        acc_dtype = self.sweep_acc_dtype
+        src = np.asarray(volume, np.float32)
+        bounds = [(0, p0)] + [(starts_x[k - 1] + p0, starts_x[k] + p0)
+                              for k in range(1, n_starts)]
+
+        def put(k):
+            b0, b1 = bounds[k]
+            rows = max(0, min(b1, spatial[0]) - b0)
+
+            def fill(host):
+                host.zero_()
+                if rows:
+                    host[:, :rows, :spatial[1], :spatial[2]] = \
+                        torch.from_numpy(src[:, b0:b0 + rows])
+            return up.put((C, b1 - b0, *plane), self.compute_dtype, fill)
+
+        up = StripUploader(self.device, self.phase)
+        fetch = RowFetcher(self.device)
+        pending = [put(0), put(1)]
+        acc = torch.zeros((p0, *plane, K + 1), dtype=acc_dtype,
+                          device=self.device)
+        spare = torch.empty_like(acc)
+        slab = None
+        with torch.no_grad():
+            for k in range(n_starts):
+                if k + 2 < n_starts:
+                    pending.append(put(k + 2))
+                strip = up.take(pending[k])
+                pending[k] = None
+                slab = strip if k == 0 else torch.cat(
+                    [slab[:, rolls[k - 1]:], strip], 1)
+                for bi in range(len(coords_b)):
+                    with self.phase("forward"):
+                        logits = forward(self._gather(slab, coords_b[bi]))
+                    with self.phase("accumulate"):
+                        self._accumulate_batch(acc, logits, coords_b[bi],
+                                               valid_b[bi], acc_dtype)
+                n = rolls[k] if k < n_starts - 1 else p0
+                with self.phase("finalize"):
+                    # argmax(a / w) == argmax(a): w > 0 is shared by classes
+                    rows = acc[:n, ..., :K].argmax(-1).to(torch.uint8)
+                    if k < n_starts - 1:
+                        spare[:p0 - n].copy_(acc[n:])
+                        spare[p0 - n:].zero_()
+                        acc, spare = spare, acc
+                with self.phase("d2h"):
+                    fetch.put(rows)
+        seg = np.concatenate(fetch.results(), 0)
+        return seg[tuple(slice(0, s) for s in spatial)]
+
+    def predict_segmentation_coset(self, params_list,
+                                   volume: np.ndarray) -> np.ndarray:
+        """Coset-decomposed rolling sweep (the JAX method's contract; step
+        0.5 and even patch dims). The grid is uniform at half a patch on
+        every axis; per chunk its tiles split into 4 cosets (even / odd
+        start index in y and z) whose tiles are disjoint and lie side by
+        side, so a coset row of tiles at one y offset lands in the (rows,
+        K+1, Y, Z) accumulator with one dense add. Rows are forwarded in
+        groups of at most 4 tiles, padded with zero tiles masked out. The
+        accumulator is two half-depth buffers; rolling by a chunk swaps
+        them. Fold ensembles average the logits as everywhere."""
+        self._check_dims(volume)
+        if self.tile_step_size != 0.5 or any(p % 2 for p in self.patch_size):
+            raise ValueError("coset sweep requires step 0.5 and even patch "
+                             f"dims, got {self.tile_step_size}, "
+                             f"{self.patch_size}")
+        forward = self._tile_step_fn(self.load_params(params_list))
+        spatial = tuple(int(s) for s in volume.shape[1:])
+        p0, py, pz = self.patch_size
+        stride, sy, sz = p0 // 2, py // 2, pz // 2
+        n_chunks = int(np.ceil((max(spatial[0], p0) - p0) / stride)) + 1
+        x_padded = (n_chunks - 1) * stride + p0
+        tail_rows = p0 - stride if n_chunks > 1 else p0
+        if n_chunks == 1:
+            stride = 0
+
+        def grid_1d(extent, p, s):
+            tight = max(extent, p)
+            n = int(np.ceil((tight - p) / s)) + 1 if tight > p else 1
+            ce, co = (n + 1) // 2, n // 2
+            # both cosets are padded to ce tiles, so the odd one's last
+            # column reaches s + ce * p
+            return n, (s + ce * p) if co else ce * p
+
+        ny, y_needed = grid_1d(spatial[1], py, sy)
+        nz, z_needed = grid_1d(spatial[2], pz, sz)
+        plane = (max(y_needed, _round_up(max(spatial[1], py),
+                                         self.shape_bucket)),
+                 max(z_needed, _round_up(max(spatial[2], pz),
+                                         self.shape_bucket)))
+        C, K = volume.shape[0], self.num_classes
+        acc_dtype = self.sweep_acc_dtype
+        vol = torch.zeros((C, x_padded, *plane), dtype=self.compute_dtype,
+                          device=self.device)
+        vol[(slice(None),) + tuple(slice(0, s) for s in spatial)] = \
+            torch.as_tensor(np.asarray(volume, np.float32)).to(
+                self.device, self.compute_dtype)
+
+        # coset rows in the JAX order: (even y, even z), (even y, odd z),
+        # (odd y, even z), (odd y, odd z); each of cz_m columns, those past
+        # the coset's count masked
+        ny_e, ny_o, nz_e, nz_o = (ny + 1) // 2, ny // 2, (nz + 1) // 2, nz // 2
+        cz_m = max(nz_e, nz_o)
+        rows_meta = []
+        for oy0, cy in ((0, ny_e), (sy, ny_o)):
+            for oz, cz in ((0, nz_e), (sz, nz_o)):
+                if cy > 0 and cz > 0:
+                    cols = np.zeros(cz_m, bool)
+                    cols[:cz] = True
+                    rows_meta += [(oy0 + i * py, oz, cols) for i in range(cy)]
+        B = min(self.tile_batch, 4, cz_m)
+        G = -(-cz_m // B)
+        g = self.gaussian_tensor(acc_dtype)
+        g_w = g.expand(B, 1, p0, py, pz)
+
+        def run_cosets(accs, x0):
+            for oy, oz, cols in rows_meta:
+                region = vol[:, x0:x0 + p0, oy:oy + py, oz:oz + cz_m * pz]
+                tiles = region.reshape(C, p0, py, cz_m, pz).permute(
+                    3, 0, 1, 2, 4)                       # (cz_m, C, *patch)
+                parts = []
+                for gi in range(G):
+                    vm = cols[gi * B:(gi + 1) * B]
+                    n = len(vm)
+                    if not vm.any():  # padding only: a zero contribution
+                        parts.append(torch.zeros(
+                            (n, K + 1, p0, py, pz), dtype=acc_dtype,
+                            device=self.device))
+                        continue
+                    tb = torch.zeros((B, C, p0, py, pz),
+                                     dtype=self.compute_dtype,
+                                     device=self.device)
+                    tb[:n] = tiles[gi * B:gi * B + n]
+                    with self.phase("forward"):
+                        logits = forward(tb)
+                    with self.phase("accumulate"):
+                        c = torch.cat([logits * g, g_w], 1).to(acc_dtype)
+                        mask = torch.as_tensor(vm, device=self.device).to(
+                            acc_dtype)
+                        parts.append(c[:n] * mask[:, None, None, None, None])
+                with self.phase("accumulate"):
+                    block = torch.cat(parts).permute(2, 1, 3, 0, 4).reshape(
+                        p0, K + 1, py, cz_m * pz)
+                    sl = (slice(None), slice(None), slice(oy, oy + py),
+                          slice(oz, oz + cz_m * pz))
+                    if len(accs) == 1:
+                        accs[0][sl] += block
+                    else:
+                        accs[0][sl] += block[:stride]
+                        accs[1][sl] += block[stride:]
+
+        seg = torch.zeros((x_padded, *plane), dtype=torch.uint8,
+                          device=self.device)
+        with torch.no_grad():
+            if stride == 0:
+                acc = torch.zeros((p0, K + 1, *plane), dtype=acc_dtype,
+                                  device=self.device)
+                run_cosets((acc,), 0)
+                seg[:tail_rows] = acc[:tail_rows, :K].argmax(1).to(torch.uint8)
+            else:
+                lo = torch.zeros((stride, K + 1, *plane), dtype=acc_dtype,
+                                 device=self.device)
+                hi = torch.zeros_like(lo)
+                for k in range(n_chunks):
+                    x0 = k * stride
+                    run_cosets((lo, hi), x0)
+                    with self.phase("finalize"):
+                        seg[x0:x0 + stride] = lo[:, :K].argmax(1).to(
+                            torch.uint8)
+                        lo, hi = hi, lo
+                        hi.zero_()
+                x0 = n_chunks * stride
+                seg[x0:x0 + tail_rows] = lo[:tail_rows, :K].argmax(1).to(
+                    torch.uint8)
+        return seg[tuple(slice(0, s) for s in spatial)].cpu().numpy()
+
     # -------------------------------------------------------------- s2d sweep
     def run_s2d_sweep(self, vol: torch.Tensor, spatial: Sequence[int],
                       valid_chunks: Optional[np.ndarray] = None
@@ -767,46 +1074,14 @@ class SlidingWindowEngine:
         if tuple(vol.shape[1:]) != vol_shape:
             raise ValueError(f"device volume {tuple(vol.shape)} != planned "
                              f"(C, {vol_shape})")
-        starts_x, coords_b, valid_b = self.sweep_tiles(steps)
-        nb, B = valid_b.shape
-        p0, py, pz = self.patch_size
-        p0h, pyh, pzh = p0 // 2, py // 2, pz // 2
-        K = self.num_classes
-        plane = vol_shape[1:]
-        plane_h = (plane[0] // 2, plane[1] // 2)
-        acc_dtype = self.sweep_acc_dtype
-        g_s2d = self.gaussian_s2d(acc_dtype)
-        w_dense, b_head = self.network.seg_head_params()
-        # in the compute dtype: bf16 weights let kernel C fuse its head dot
-        w_blocks = seg_head_blocks(w_dense).contiguous()
-        b_head = b_head.float().contiguous()
-        coords_h = coords_b[..., 1:] // 2                    # (nb, B, 2)
-
-        acc = torch.zeros((p0h, *plane_h, 8 * K), dtype=acc_dtype,
-                          device=vol.device)
+        sweep = S2DChunks(self, vol_shape, steps)
         seg = torch.empty(vol_shape, dtype=torch.uint8, device=vol.device)
-        row_base = 0
         with torch.no_grad():
-            for k, x0 in enumerate(starts_x):
-                valid_c = valid_b if valid_chunks is None else valid_chunks[k]
-                for bi in range(nb):
-                    if valid_chunks is not None and not valid_c[bi].any():
-                        continue  # whole-air batch: no forward at all
-                    with self.phase("forward"):
-                        tiles = torch.stack([
-                            vol[:, x0:x0 + p0, y:y + py, z:z + pz]
-                            for _, y, z in coords_b[bi]])
-                        feats = self.network(tiles, return_features=True)
-                    with self.phase("accumulate"):
-                        s2d_accumulate(acc, feats, g_s2d, w_blocks, b_head,
-                                       coords_h[bi], valid_c[bi], row_base)
-                last = k == len(starts_x) - 1
-                n_rows = p0h if last else (starts_x[k + 1] - x0) // 2
-                with self.phase("finalize"):
-                    cls8 = grouped_argmax(acc, K, n_rows, row_base,
-                                          0 if last else n_rows)
-                    seg[x0:x0 + 2 * n_rows] = _revert_cls(cls8, plane)
-                row_base = (row_base + n_rows) % p0h
+            for k, x0 in enumerate(sweep.starts_x):
+                sweep.accumulate(vol, x0, None if valid_chunks is None
+                                 else valid_chunks[k])
+                n_rows = sweep.owned_rows(k)
+                sweep.finish(k, seg[x0:x0 + 2 * n_rows])
         return seg
 
     def predict_segmentation_sweep_s2d(self, params_list,
@@ -828,7 +1103,8 @@ class SlidingWindowEngine:
     def predict_segmentation(self, params_list,
                              volume: np.ndarray) -> np.ndarray:
         """Argmax segmentation: above the accumulator budget one of the
-        sweeps (s2d for an s2d network without mirroring, else the plain
+        sweeps (s2d for an s2d network without mirroring, else the coset or
+        the streamed sweep where their options select them, else the plain
         rolling sweep); otherwise the grid-exact logits path. A 2D engine
         takes the argmax of its 2D-over-slices logits, as the JAX engine
         does."""
@@ -840,8 +1116,117 @@ class SlidingWindowEngine:
         if self._acc_bytes(spatial) > self.max_accumulator_bytes:
             if self.is_s2d and not self.mirror_axes:
                 return self.predict_segmentation_sweep_s2d(params_list, volume)
+            if self.use_coset_sweep and self.tile_step_size == 0.5 and \
+                    all(p % 2 == 0 for p in self.patch_size):
+                return self.predict_segmentation_coset(params_list, volume)
+            if self.use_streamed_sweep and not self.use_fused_accumulate:
+                return self.predict_segmentation_sweep_streamed(params_list,
+                                                                volume)
             return self.predict_segmentation_sweep(params_list, volume)
         return self.predict_logits(params_list, volume).argmax(0)
+
+
+class S2DChunks:
+    """The s2d rolling sweep's per-chunk body over the engine's loaded
+    folds: the half-res accumulator (p0/2, Yh, Zh, 8K) with its cyclic row
+    origin, the tile batches of one chunk, and the rows a chunk finishes.
+    ``run_s2d_sweep`` drives it over a device volume, the turbo pipeline's
+    streamed route over a rolling slab (x0 = 0), so both take the same
+    tiles in the same batches.
+
+    One fold: the forward gives the pre-head s2d features and kernel C
+    applies the head, the gaussian and the accumulate. Several folds: the
+    forward gives the fold-averaged f32 s2d logits and each tile adds
+    ``(y * g_s2d * valid).to(acc_dtype)`` with torch ops (the JAX sweep's
+    XLA accumulate; its Pallas one takes one fold). Kernel B finalizes
+    either way and zeroes the rows it retires."""
+
+    def __init__(self, eng: "SlidingWindowEngine", vol_shape, steps):
+        self.eng = eng
+        self.starts_x, self.coords_b, self.valid_b = eng.sweep_tiles(steps)
+        p0, py, pz = eng.patch_size
+        self.p0h, self.pyh, self.pzh = p0 // 2, py // 2, pz // 2
+        self.K = eng.num_classes
+        self.plane = tuple(vol_shape[1:])
+        self.nets = eng._folds[1] or [eng.network]
+        self.acc_dtype = eng.sweep_acc_dtype
+        self.g_s2d = eng.gaussian_s2d(self.acc_dtype)
+        if len(self.nets) == 1:
+            w_dense, b_head = eng.network.seg_head_params()
+            # in the compute dtype: bf16 weights let kernel C fuse its dot
+            self.w_blocks = seg_head_blocks(w_dense).contiguous()
+            self.b_head = b_head.float().contiguous()
+        self.coords_h = self.coords_b[..., 1:] // 2            # (nb, B, 2)
+        self.acc = torch.zeros(
+            (self.p0h, self.plane[0] // 2, self.plane[1] // 2, 8 * self.K),
+            dtype=self.acc_dtype, device=eng.device)
+        self.row_base = 0
+
+    def owned_rows(self, k: int) -> int:
+        """Half-res rows chunk k finishes: up to the next start, or all."""
+        if k == len(self.starts_x) - 1:
+            return self.p0h
+        return (self.starts_x[k + 1] - self.starts_x[k]) // 2
+
+    def accumulate(self, vol: torch.Tensor, x0: int,
+                   valid_c: Optional[np.ndarray] = None) -> None:
+        """Accumulate one chunk's tile batches, reading vol (C, X, Y, Z)
+        rows from x0. ``valid_c`` (nb, B) replaces the shared validity (air
+        skipping): a batch whose flags are all 0 skips its forward."""
+        eng = self.eng
+        p0, py, pz = eng.patch_size
+        for bi in range(len(self.coords_b)):
+            valid = self.valid_b[bi] if valid_c is None else valid_c[bi]
+            if valid_c is not None and not valid.any():
+                continue  # whole-air batch: no forward at all
+            with eng.phase("forward"):
+                tiles = torch.stack([vol[:, x0:x0 + p0, y:y + py, z:z + pz]
+                                     for _, y, z in self.coords_b[bi]])
+                if len(self.nets) == 1:
+                    out = self.nets[0](tiles, return_features=True)
+                else:
+                    out = self.nets[0](tiles, s2d_output=True).float()
+                    for net in self.nets[1:]:
+                        out = out + net(tiles, s2d_output=True).float()
+                    out = out / len(self.nets)
+            with eng.phase("accumulate"):
+                if len(self.nets) == 1:
+                    s2d_accumulate(self.acc, out, self.g_s2d, self.w_blocks,
+                                   self.b_head, self.coords_h[bi], valid,
+                                   self.row_base)
+                else:
+                    self._accumulate_logits(out, self.coords_h[bi], valid)
+
+    def _accumulate_logits(self, y: torch.Tensor, coords_h: np.ndarray,
+                           valid: np.ndarray) -> None:
+        """y (B, 8K, p0h, pyh, pzh) f32 offset-major s2d logits; per tile
+        ``acc[rows] = acc[rows] + (y * g * valid).to(acc_dtype)`` in batch
+        order, virtual row i at physical row (row_base + i) % p0h."""
+        p0h, pyh, pzh, K = self.p0h, self.pyh, self.pzh, self.K
+        rows = (self.row_base + torch.arange(p0h, device=self.acc.device)) \
+            % p0h
+        for t in range(y.shape[0]):
+            v = float(valid[t])
+            if v == 0.0:
+                continue
+            yt = y[t].permute(1, 2, 3, 0).reshape(p0h, pyh, pzh, 8, K)
+            contrib = (yt * (self.g_s2d * v)[..., None]).to(
+                self.acc_dtype).reshape(p0h, pyh, pzh, 8 * K)
+            y0, z0 = int(coords_h[t, 0]), int(coords_h[t, 1])
+            idx = (rows, slice(y0, y0 + pyh), slice(z0, z0 + pzh))
+            self.acc[idx] = self.acc[idx] + contrib
+
+    def finish(self, k: int, out: torch.Tensor) -> None:
+        """Finalize chunk k's owned rows into out (2n, Y, Z) uint8 (kernel
+        B; it zeroes them unless k is the last chunk) and advance the row
+        origin."""
+        n_rows = self.owned_rows(k)
+        last = k == len(self.starts_x) - 1
+        with self.eng.phase("finalize"):
+            cls8 = grouped_argmax(self.acc, self.K, n_rows, self.row_base,
+                                  0 if last else n_rows)
+            out.copy_(_revert_cls(cls8, self.plane))
+        self.row_base = (self.row_base + n_rows) % self.p0h
 
 
 def _revert_cls(cls8: torch.Tensor, plane: Tuple[int, int]) -> torch.Tensor:

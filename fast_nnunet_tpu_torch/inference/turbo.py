@@ -1,8 +1,8 @@
 """TurboPipeline — end-to-end serving on the card (read -> preprocess ->
 s2d sweep -> revert -> write): the port of
-fast_nnunet_tpu/inference/turbo.py on its device-preprocess route.
+fast_nnunet_tpu/inference/turbo.py.
 
-Per call, on the device:
+Device-preprocess route (the default), per call, on the device:
 
 1. the raw volume is uploaded once, from a pinned staging buffer;
 2. the plans transpose, the per-channel normalization (CT clip + z-score,
@@ -16,12 +16,32 @@ Per call, on the device:
 4. the s2d rolling sweep (inference/engine.py; kernels A, B and C);
 5. the nearest revert to the original grid (the index map of
    ``jax.image.resize(method="nearest")``) and the inverse transpose,
-   then one D2H copy of the uint8 mask.
+   then one D2H copy of the uint8 mask — or, with ``host_revert``, the
+   target-grid mask packed 6 bits per voxel on the device, one copy into
+   pinned memory, and the revert on the host (csrc/host_ops.cpp).
 
-Not ported yet: the C++ host preprocess and strip streaming
-(``host_preprocess=True``), the host revert with 6-bit packing
-(``host_revert=True``) and fold ensembles; each raises
-``NotImplementedError``.
+Host route (``host_preprocess=True``, int16 CT channels; the JAX package's
+default serving route), on the host library csrc/host_ops.cpp
+(utils/hostops.py):
+
+- streamed (the default; ``FNN_TURBO_STREAM=0`` turns it off): the sweep
+  runs over a rolling device slab of p0 rows. Each x-strip of the target
+  grid is clipped, z-scored and resampled in C++ right before its upload
+  (``FNN_LAZY_PRE=0``: from a whole grid preprocessed first), cropped
+  in-plane to the non-air bounding box (``FNN_HOST_CROP=0`` keeps the
+  whole plane), written into a ring of pinned buffers and copied on a side
+  stream two chunks ahead, while the card computes earlier chunks; the
+  slab reinserts it into the bf16-exact fill. Each chunk's finished rows
+  are packed 6 bits per voxel and copied out as the chunk ends; the host
+  unpacks them and reverts to the original grid. Air flags come from the
+  strips the host already holds (no fetch per chunk).
+- fused, where the geometry does not stream (one x start, an odd roll) or
+  the stream is off: the whole preprocessed grid (its non-fill bounding
+  slab with ``FNN_HOST_CROP=1``) is uploaded, reinserted into fill on the
+  device, swept like the device route and reverted on the host.
+
+Both routes run the same per-chunk body (engine.S2DChunks): the same
+tiles in the same batches, so their masks are bit-equal.
 """
 import argparse
 import configparser
@@ -36,6 +56,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..imageio.nifti import NiftiIOWithReorient
+from ..utils import hostops
+from .engine import RowFetcher, S2DChunks, StripUploader
 
 
 def _parse_tuple(s: str) -> Tuple[float, ...]:
@@ -143,6 +165,136 @@ def _fill_bf16_bits(spec) -> int:
     return _f32_to_bf16_bits(np.float32(f))
 
 
+def _bf16_value(bits: int) -> float:
+    """The float a bfloat16 bit pattern stands for."""
+    return float(np.array([int(bits) << 16], np.uint32).view(np.float32)[0])
+
+
+def _nonfill_bbox(arr: np.ndarray, fill_bits, bucket: int):
+    """Raw per-axis [lo, hi) extents of the voxels where ANY channel of arr
+    (C, d, h, w) bf16 bits differs from its fill bit pattern. Returns
+    all-zero lo and a minimal bucket-sized hi when nothing differs."""
+    bits = arr.view(np.uint16)
+    diff = np.zeros(arr.shape[1:], bool)
+    for c in range(arr.shape[0]):
+        diff |= bits[c] != np.uint16(fill_bits[c])
+    if not diff.any():
+        return ([0] * (arr.ndim - 1),
+                [min(bucket, s) for s in arr.shape[1:]])
+    lo, hi = [], []
+    for ax in range(diff.ndim):
+        other = tuple(a for a in range(diff.ndim) if a != ax)
+        nz = np.flatnonzero(diff.any(axis=other))
+        lo.append(int(nz[0]))
+        hi.append(int(nz[-1]) + 1)
+    return lo, hi
+
+
+def _bucket_extent(l: int, h: int, s: int, bucket: int):
+    """Floor lo to the bucket FIRST, then size the slab from the floored
+    lo — sizing from the raw lo can leave [lf+size, h) uncovered."""
+    lf = l // bucket * bucket
+    size = min(-(-(h - lf) // bucket) * bucket, s - lf)
+    return lf, lf + size
+
+
+def _source_range_to_target(n_in: int, n_out: int, slo: int, shi: int):
+    """Conservative map of a SOURCE-axis non-air range [slo, shi) to the
+    TARGET-axis range of trilinear-output voxels that can differ from the
+    fill: target j reads source samples lo[j] and hi[j] (half-pixel rule,
+    f32 arithmetic like csrc/host_ops.cpp linear_table); j can be non-fill
+    only when [lo[j], hi[j]] meets [slo, shi). Every excluded voxel
+    interpolates equal clip-floor neighbours, so it lands on the fill bit
+    pattern exactly — the box is a superset of the grid-scan one and the
+    crop's reinsertion stays bit-exact."""
+    i = np.arange(n_out, dtype=np.float32)
+    x = (i + np.float32(0.5)) * (np.float32(n_in) / np.float32(n_out)) \
+        - np.float32(0.5)
+    lo = np.floor(x).astype(np.int64)
+    hi = np.clip(lo + 1, 0, n_in - 1)
+    lo = np.clip(lo, 0, n_in - 1)
+    nz = np.flatnonzero((hi >= slo) & (lo <= shi - 1))
+    if nz.size == 0:  # degenerate geometry; never drop voxels
+        return 0, n_out
+    return int(nz[0]), int(nz[-1]) + 1
+
+
+def _crop_to_fill_bbox(arr: np.ndarray, fill_bits, bucket: int = 32):
+    """arr: (C, d, h, w) bf16 bits. Returns (crop_box, slab): slab is the
+    contiguous sub-volume outside of which EVERY channel equals its fill
+    bit pattern (padding it with the fill reconstructs arr exactly), its
+    extents rounded up to ``bucket`` multiples; (None, arr) when the box
+    covers everything. A wrong fill pattern fails safe: nothing matches,
+    the box spans the array, and the crop is a no-op."""
+    lo, hi = _nonfill_bbox(arr, fill_bits, bucket)
+    box_lo, box_hi = [], []
+    for l, h, s in zip(lo, hi, arr.shape[1:]):
+        bl, bh = _bucket_extent(l, h, s, bucket)
+        box_lo.append(bl)
+        box_hi.append(bh)
+    if not all(bl <= l and bh >= h
+               for bl, bh, l, h in zip(box_lo, box_hi, lo, hi)):
+        raise AssertionError(f"crop slab {box_lo}-{box_hi} misses non-fill "
+                             f"voxels {lo}-{hi}")
+    if all(h - l >= s for l, h, s in zip(box_lo, box_hi, arr.shape[1:])):
+        return None, arr
+    slab = np.ascontiguousarray(
+        arr[:, box_lo[0]:box_hi[0], box_lo[1]:box_hi[1],
+            box_lo[2]:box_hi[2]])
+    return (tuple(box_lo), tuple(box_hi)), slab
+
+
+def pack_mask6(s: torch.Tensor) -> torch.Tensor:
+    """uint8 labels < 64 -> (ceil(n / 4), 3) uint8, 4 voxels in 3 bytes
+    (the JAX pipeline's device pack, zero-padded to a multiple of 4)."""
+    flat = s.reshape(-1)
+    n = flat.numel()
+    if n % 4:
+        flat = torch.cat([flat, flat.new_zeros((-n) % 4)])
+    q = flat.view(-1, 4)
+    b0 = q[:, 0] | (q[:, 1] << 6)
+    b1 = (q[:, 1] >> 2) | (q[:, 2] << 4)
+    b2 = (q[:, 2] >> 4) | (q[:, 3] << 2)
+    return torch.stack([b0, b1, b2], dim=-1)
+
+
+def _unpack_mask6(packed: np.ndarray, shape) -> np.ndarray:
+    """Inverse of :func:`pack_mask6` on the host."""
+    b0, b1, b2 = packed[:, 0], packed[:, 1], packed[:, 2]
+    v = np.empty((packed.shape[0], 4), np.uint8)
+    v[:, 0] = b0 & 63
+    v[:, 1] = (b0 >> 6) | ((b1 & 15) << 2)
+    v[:, 2] = (b1 >> 4) | ((b2 & 3) << 4)
+    v[:, 3] = b2 >> 2
+    n = int(np.prod(shape))
+    return v.reshape(-1)[:n].reshape(shape)
+
+
+def _row_blocks(bits: np.ndarray, tf, off_y: int, off_z: int, by: int,
+                bz: int) -> np.ndarray:
+    """bits: one channel of a strip as bf16 bit patterns, image axis order,
+    placed at (off_y, off_z) of an engine-order plane of (8 by, 8 bz).
+    Returns (rows, by, bz) f32: per engine row, the maxima of its 8 x 8
+    blocks, -inf where a block holds no voxel of the strip. The maxima are
+    taken on order-preserving 16-bit keys in the strip's own layout (no
+    float conversion or transpose of the strip), then mapped back."""
+    def cuts(off, n):
+        j0, j1 = off // 8, (off + n - 1) // 8 + 1
+        return j0, j1, [max(8 * j - off, 0) for j in range(j0, j1)]
+    ay, az = tf[1], tf[2]
+    y0, y1, cy = cuts(off_y, bits.shape[ay])
+    z0, z1, cz = cuts(off_z, bits.shape[az])
+    # negative bf16: all bits flipped; non-negative: the sign bit set
+    key = bits ^ ((bits >> 15) * np.uint16(0x7FFF) | np.uint16(0x8000))
+    m = np.maximum.reduceat(np.maximum.reduceat(key, cy, axis=ay), cz,
+                            axis=az)
+    m = np.transpose(m, tf)
+    m = np.where(m & 0x8000, m ^ np.uint16(0x8000), ~m)
+    out = np.full((m.shape[0], by, bz), -np.inf, np.float32)
+    out[:, y0:y1, z0:z1] = (m.astype(np.uint32) << 16).view(np.float32)
+    return out
+
+
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
     """jax.image.resize(method="nearest")'s per-axis source index:
     floor((i + 0.5) * in / out) in float32."""
@@ -234,21 +386,33 @@ class TurboPipeline:
         S2DPlainConvUNet whose patch/classes match ``config``.
         air_skip: drop tile batches whose voxels are all below
         lower_bound + air_margin_hu (HU; CT channel 0 only).
-        host_revert / host_preprocess: the host-side routes of the JAX
-        pipeline are not ported yet — True raises NotImplementedError
-        ("auto" means False here)."""
-        if host_revert:
-            raise NotImplementedError(
-                "host_revert (coarse-mask D2H with 6-bit packing and the host "
-                "nearest revert) is not ported yet: the port reverts on the "
-                "device")
-        if host_preprocess not in (False, "auto"):
-            raise NotImplementedError(
-                "host_preprocess (the C++ hostops preprocess and strip "
-                "streaming) is not ported yet: the port preprocesses on the "
-                "device")
+        host_revert: fetch the target-grid mask (packed 6 bits per voxel
+        with <= 64 classes) and revert it to the original grid on the host
+        (voxel-identical to the device revert).
+        host_preprocess: True takes the host route for int16 input (see the
+        module docstring; it implies the host revert): CT channels only
+        (ValueError otherwise), and the host library is built here (a
+        failed build raises RuntimeError). Float input takes the device
+        route for that call. "auto" is the device route, unlike JAX's
+        "auto" (the host route whenever the hand-built
+        engine/build/libfnn_hostops.so exists): that route hides a slow TPU
+        link, and the port builds its host library on first use, so JAX's
+        rule would move every caller onto a single-threaded C++ preprocess
+        without a measurement that it pays on the card."""
         self.engine = engine
         self.config = config
+        self.host_revert = bool(host_revert)
+        if host_preprocess == "auto":
+            host_preprocess = False
+        elif host_preprocess:
+            if not all(c["scheme"] == "ct" for c in config.channels):
+                raise ValueError("host_preprocess supports CT channels only")
+            hostops.library()
+        self.host_preprocess = bool(host_preprocess)
+        #: in-plane slab extents of the host crop round up to this
+        self.crop_bucket = int(os.environ.get("FNN_HOST_CROP_BUCKET", "32"))
+        #: the host revert fetches 6-bit labels when they fit
+        self.pack_mask = config.num_classes <= 64
         ch0 = config.channels[0]
         if air_skip and ch0["scheme"] != "ct":
             print("[turbo] air skipping needs a CT (HU-calibrated) channel 0; "
@@ -262,6 +426,11 @@ class TurboPipeline:
         else:
             self.air_threshold = float("-inf")
         self._staging = {}
+        #: the route the last predict_volume took ("device", "host" or
+        #: "streamed") and its host seconds ("preprocess", "air" flags,
+        #: "revert")
+        self.route = None
+        self.host_seconds: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -287,6 +456,30 @@ class TurboPipeline:
         done.record()
         return dev
 
+    def _geometry(self, volume: np.ndarray, spacing: Sequence[float]):
+        """(in_shape, new_shape) in engine order: the raw grid and the
+        target-spacing grid (at least the patch)."""
+        cfg, eng = self.config, self.engine
+        tf = list(cfg.transpose_forward)
+        in_shape = tuple(int(volume.shape[1 + a]) for a in tf)
+        spacing_t = [float(spacing[a]) for a in tf]
+        new_shape = tuple(int(round(s * sp / tsp)) for s, sp, tsp in zip(
+            in_shape, spacing_t, cfg.target_spacing))
+        new_shape = tuple(max(n, p) for n, p in zip(new_shape, eng.patch_size))
+        return in_shape, new_shape
+
+    def _air_valid(self, x0: torch.Tensor, steps) -> Optional[np.ndarray]:
+        """Per-chunk batch validity from channel 0 of the padded device
+        volume (air skipping), or None without it."""
+        if not self.air_skip:
+            return None
+        eng = self.engine
+        starts_x, coords_b, valid_b = eng.sweep_tiles(steps)
+        flags = air_flags(x0, starts_x, eng.patch_size, coords_b,
+                          _fill_f64(self.config.channels[0]),
+                          self.air_threshold)
+        return flags * valid_b[None]
+
     # ---------------------------------------------------------- prediction
     def preprocess(self, volume: np.ndarray, spacing: Sequence[float]):
         """Raw (C, D, H, W) image-order volume -> the padded sweep volume on
@@ -296,11 +489,7 @@ class TurboPipeline:
         shapes in engine order; valid_chunks is None without air skipping."""
         cfg, eng = self.config, self.engine
         tf = list(cfg.transpose_forward)
-        in_shape = tuple(int(volume.shape[1 + a]) for a in tf)
-        spacing_t = [float(spacing[a]) for a in tf]
-        new_shape = tuple(int(round(s * sp / tsp)) for s, sp, tsp in zip(
-            in_shape, spacing_t, cfg.target_spacing))
-        new_shape = tuple(max(n, p) for n, p in zip(new_shape, eng.patch_size))
+        in_shape, new_shape = self._geometry(volume, spacing)
         vol_shape, steps = eng.s2d_sweep_plan(new_shape)
         dt = eng.compute_dtype
         with torch.no_grad():
@@ -318,21 +507,16 @@ class TurboPipeline:
                     vol[c].fill_(_fill_f64(spec))
                 vol[(slice(None),) + tuple(slice(0, n) for n in new_shape)] = xs
                 del xs
-                valid_chunks = None
-                if self.air_skip:
-                    starts_x, coords_b, valid_b = eng.sweep_tiles(steps)
-                    flags = air_flags(vol[0], starts_x, eng.patch_size,
-                                      coords_b, _fill_f64(cfg.channels[0]),
-                                      self.air_threshold)
-                    valid_chunks = flags * valid_b[None]
+                valid_chunks = self._air_valid(vol[0], steps)
         return vol, new_shape, in_shape, valid_chunks
 
     def predict_volume(self, params_list, volume: np.ndarray,
                        spacing: Sequence[float]) -> np.ndarray:
         """(D, H, W) — or (C, D, H, W) — raw volume in image axis order +
         its spacing -> uint8 segmentation on the ORIGINAL grid.
-        ``params_list`` is the s2d parameter tree (or a one-element list),
-        loaded into the network unless it is the one already loaded."""
+        ``params_list`` is the s2d parameter tree, or a list of them (a
+        fold ensemble), loaded into the network(s) unless they are the ones
+        already loaded."""
         cfg, eng = self.config, self.engine
         if volume.ndim == len(cfg.patch_size):
             volume = volume[None]
@@ -341,18 +525,289 @@ class TurboPipeline:
                 f"{volume.shape[0]} input channels but TurboConfig declares "
                 f"{cfg.num_input_channels} normalization schemes")
         eng.load_params(params_list)
+        self.host_seconds = {}
+        if self.host_preprocess and volume.dtype == np.int16:
+            return self._predict_host(volume, spacing)
+        self.route = "device"
         vol, new_shape, in_shape, valid_chunks = self.preprocess(volume,
                                                                  spacing)
         seg = eng.run_s2d_sweep(vol, new_shape, valid_chunks)
         del vol
+        s = seg[tuple(slice(0, n) for n in new_shape)]
+        if self.host_revert:
+            return self._revert_on_host(s, in_shape)
         with torch.no_grad():
             with eng.phase("revert"):
-                s = seg[tuple(slice(0, n) for n in new_shape)]
                 out = resize_nearest(s, in_shape).permute(
                     *cfg.transpose_backward).contiguous()
             with eng.phase("d2h"):
                 mask = out.cpu().numpy()
         return mask
+
+    # ---------------------------------------------------------- host route
+    def _ct_scalars(self):
+        chs = self.config.channels
+        return ([c["lower_bound"] for c in chs], [c["upper_bound"] for c in chs],
+                [c["mean"] for c in chs], [c["std"] for c in chs])
+
+    def _add_seconds(self, name: str, t0: float) -> None:
+        self.host_seconds[name] = self.host_seconds.get(name, 0.0) + \
+            time.perf_counter() - t0
+
+    def _predict_host(self, volume: np.ndarray, spacing) -> np.ndarray:
+        """The host route of an int16 CT (see the module docstring)."""
+        cfg = self.config
+        volume = np.ascontiguousarray(volume)  # read once per strip
+        in_shape, new_shape = self._geometry(volume, spacing)
+        inv = cfg.transpose_backward
+        new_shape_img = tuple(new_shape[inv[p]] for p in range(3))
+        stream_on = os.environ.get("FNN_TURBO_STREAM", "1") == "1"
+        lazy_on = os.environ.get("FNN_LAZY_PRE", "1") == "1"
+        if stream_on and lazy_on:
+            seg = self._predict_streamed(new_shape, new_shape_img, raw=volume)
+            if seg is not None:
+                return self._finish_host(seg, in_shape)
+        t0 = time.perf_counter()
+        grid = hostops.preprocess_ct_i16(volume, new_shape_img,
+                                         *self._ct_scalars())
+        self._add_seconds("preprocess", t0)
+        if stream_on and not lazy_on:
+            seg = self._predict_streamed(new_shape, new_shape_img, grid=grid)
+            if seg is not None:
+                return self._finish_host(seg, in_shape)
+        self.route = "host"
+        crop_box = None
+        if os.environ.get("FNN_HOST_CROP", "1") == "1":
+            # what the CT clip floor made exactly the fill (air) need not
+            # cross the link: upload the non-fill slab, reinsert on device
+            crop_box, grid = _crop_to_fill_bbox(
+                grid, [_fill_bf16_bits(c) for c in cfg.channels],
+                bucket=self.crop_bucket)
+        seg = self._sweep_host_grid(grid, crop_box, new_shape)
+        return self._revert_on_host(
+            seg[tuple(slice(0, n) for n in new_shape)], in_shape)
+
+    def _sweep_host_grid(self, grid: np.ndarray, crop_box,
+                         new_shape) -> torch.Tensor:
+        """Upload a host-preprocessed image-order bf16 grid (or its crop
+        slab at crop_box), build the padded sweep volume from it — the slab
+        inside the bf16-exact fill, ``_fill_f64`` in the pad ring — and run
+        the s2d sweep. Returns the device mask at vol_shape."""
+        cfg, eng = self.config, self.engine
+        tf = cfg.transpose_forward
+        vol_shape, steps = eng.s2d_sweep_plan(new_shape)
+        dt = eng.compute_dtype
+        with torch.no_grad():
+            with eng.phase("upload"):
+                raw = self._upload(grid.view(np.int16))
+            with eng.phase("preprocess"):
+                xs = raw.view(torch.bfloat16).permute(
+                    0, *(a + 1 for a in tf)).to(dt)
+                vol = torch.empty((len(cfg.channels), *vol_shape), dtype=dt,
+                                  device=self.device)
+                off = [0, 0, 0]
+                for c, spec in enumerate(cfg.channels):
+                    vol[c].fill_(_fill_f64(spec))
+                    if crop_box is not None:
+                        vol[c, :new_shape[0], :new_shape[1],
+                            :new_shape[2]].fill_(
+                            _bf16_value(_fill_bf16_bits(spec)))
+                if crop_box is not None:
+                    off = [int(crop_box[0][p]) for p in tf]
+                vol[(slice(None),) + tuple(
+                    slice(o, o + n) for o, n in zip(off, xs.shape[1:]))] = xs
+                del xs
+                valid_chunks = self._air_valid(vol[0], steps)
+        return eng.run_s2d_sweep(vol, new_shape, valid_chunks)
+
+    def _revert_on_host(self, s: torch.Tensor, in_shape) -> np.ndarray:
+        """Target-grid device mask (engine order) -> packed on the device,
+        one copy into pinned memory, unpacked and reverted on the host."""
+        eng = self.engine
+        with torch.no_grad():
+            with eng.phase("pack"):
+                packed = pack_mask6(s) if self.pack_mask else s.contiguous()
+            fetch = RowFetcher(self.device)
+            with eng.phase("d2h"):
+                fetch.put(packed)
+            host = fetch.results()[0]
+        t0 = time.perf_counter()
+        seg = _unpack_mask6(host, tuple(s.shape)) if self.pack_mask else host
+        self._add_seconds("revert", t0)
+        return self._finish_host(seg, in_shape)
+
+    def _finish_host(self, seg: np.ndarray, in_shape) -> np.ndarray:
+        """Engine-order target-grid mask -> original grid, image order."""
+        t0 = time.perf_counter()
+        if seg.shape != tuple(in_shape):
+            seg = hostops.nearest_revert_u8(seg, in_shape)
+        self._add_seconds("revert", t0)
+        return np.transpose(seg, self.config.transpose_backward)
+
+    def _predict_streamed(self, new_shape, img_shape, raw=None, grid=None
+                          ) -> Optional[np.ndarray]:
+        """The streamed host route over a rolling device slab (module
+        docstring). raw: the (C, D, H, W) int16 volume, each strip
+        preprocessed from it right before its upload; or grid: the whole
+        preprocessed image-order grid (bf16 bits). Returns the engine-order
+        target-grid mask, or None where the geometry does not stream (one x
+        start, an odd roll, mirroring, an odd patch, a strip box the host
+        library rejects): the caller then takes the fused host route."""
+        cfg, eng = self.config, self.engine
+        p0 = eng.patch_size[0]
+        if eng.mirror_axes or p0 % 2:
+            return None
+        vol_shape, steps = eng.s2d_sweep_plan(new_shape)
+        starts_x = [int(x) for x in steps[0]]
+        n_starts = len(starts_x)
+        if n_starts < 2 or any((starts_x[k + 1] - starts_x[k]) % 2
+                               for k in range(n_starts - 1)):
+            return None
+        tf = cfg.transpose_forward
+        t0 = tf[0]
+        C = cfg.num_input_channels
+        lbs, ubs, means, stds = self._ct_scalars()
+        fill_bits = [_fill_bf16_bits(c) for c in cfg.channels]
+
+        # the in-plane crop box, applied to every strip (x is never cropped)
+        if os.environ.get("FNN_HOST_CROP", "1") == "1":
+            if raw is not None:
+                slo, shi = hostops.nonair_bbox_i16(raw, lbs)
+                if shi[0] <= slo[0]:  # all air, as _nonfill_bbox
+                    lo = [0] * 3
+                    hi = [min(self.crop_bucket, n) for n in img_shape]
+                else:
+                    pairs = [_source_range_to_target(
+                        raw.shape[1 + ax], img_shape[ax], slo[ax], shi[ax])
+                        for ax in range(3)]
+                    lo, hi = [p[0] for p in pairs], [p[1] for p in pairs]
+            else:
+                lo, hi = _nonfill_bbox(grid, fill_bits, self.crop_bucket)
+        else:
+            lo, hi = [0] * 3, list(img_shape)
+        box = [(0, img_shape[ax]) if ax == t0 else
+               _bucket_extent(lo[ax], hi[ax], img_shape[ax], self.crop_bucket)
+               for ax in range(3)]
+        nx, ny, nz = new_shape
+        bounds = [(0, p0)] + [(starts_x[k - 1] + p0, starts_x[k] + p0)
+                              for k in range(1, n_starts)]
+
+        def box6(a, b):
+            out = []
+            for ax in range(3):
+                out += [a, min(b, img_shape[ax])] if ax == t0 else box[ax]
+            return out
+
+        if not all(hostops.box_ok(img_shape, box6(a, b)) for a, b in bounds):
+            return None
+
+        self.route = "streamed"
+        dt = eng.compute_dtype
+        plane = vol_shape[1:]
+        oy, oz = box[tf[1]][0], box[tf[2]][0]
+        fill_t = torch.tensor(_fill_f64(cfg.channels[0]), dtype=dt).item()
+        air = self.air_skip
+        if air:
+            # per-row 8 x 8 block maxima of channel 0 (the air test of
+            # turbo.air_flags), kept on the host from the strips it writes;
+            # rows past nx and the plane outside the box hold fill values
+            by, bz = -(-plane[0] // 8), -(-plane[1] // 8)
+            floor_plane = np.full((8 * by, 8 * bz), fill_t, np.float32)
+            floor_plane[:ny, :nz] = _bf16_value(fill_bits[0])
+            ey, ez = box[tf[1]][1] - oy, box[tf[2]][1] - oz
+            floor_plane[oy:oy + ey, oz:oz + ez] = -np.inf
+            floor = floor_plane.reshape(by, 8, bz, 8).max((1, 3))
+            rowmax = np.full((vol_shape[0], by, bz), fill_t, np.float32)
+            thr_t = torch.tensor(self.air_threshold, dtype=dt).item()
+            _, coords_b, valid_b = eng.sweep_tiles(steps)
+            flat = coords_b.reshape(-1, 3)
+            yi, zi = flat[:, 1] // 8, flat[:, 2] // 8
+            wy, wz = eng.patch_size[1] // 8 + 1, eng.patch_size[2] // 8 + 1
+
+        def chunk_valid(k):
+            if not air:
+                return None
+            x0 = starts_x[k]
+            blocks = rowmax[x0:x0 + p0].max(0)
+            if p0 % 8:
+                blocks = np.maximum(blocks, fill_t)  # the fill-padded x block
+            padded = np.full((by + wy - 1, bz + wz - 1), -np.inf, np.float32)
+            padded[:by, :bz] = blocks
+            boxmax = np.lib.stride_tricks.sliding_window_view(
+                padded, (wy, wz)).max((2, 3))
+            flags = (boxmax[yi, zi] > thr_t).astype(np.float32)
+            return flags.reshape(valid_b.shape) * valid_b
+
+        def put(k):
+            a, b = bounds[k]
+            b6 = box6(a, b)
+            shape = [b6[2 * ax + 1] - b6[2 * ax] for ax in range(3)]
+
+            def fill(host):
+                out = host.numpy().view(np.uint16)
+                if raw is not None:
+                    t0_ = time.perf_counter()
+                    hostops.preprocess_ct_i16_box(raw, img_shape, b6, lbs,
+                                                  ubs, means, stds, out=out)
+                    self._add_seconds("preprocess", t0_)
+                else:
+                    out[...] = grid[(slice(None),) + tuple(
+                        slice(b6[2 * ax], b6[2 * ax + 1]) for ax in range(3))]
+                if air:
+                    t0_ = time.perf_counter()
+                    rowmax[a:a + shape[t0]] = np.maximum(
+                        _row_blocks(out[0], tf, oy, oz, by, bz), floor)
+                    self._add_seconds("air", t0_)
+            return up.put((C, *shape), torch.int16, fill), shape[t0]
+
+        def prep_into(dst, handle):
+            """Strip -> slab rows dst (C, rows, Yp, Zp): transpose, the
+            bf16-exact fill inside new_shape, _fill_f64 in the pad ring."""
+            (h, rd) = handle
+            strip = up.take(h)
+            with eng.phase("preprocess"):
+                xs = strip.view(torch.bfloat16).permute(
+                    0, *(ax + 1 for ax in tf)).to(dt)
+                for c, spec in enumerate(cfg.channels):
+                    dst[c].fill_(_fill_f64(spec))
+                    dst[c, :rd, :ny, :nz].fill_(_bf16_value(fill_bits[c]))
+                dst[:, :rd, oy:oy + xs.shape[2], oz:oz + xs.shape[3]] = xs
+
+        up = StripUploader(self.device, eng.phase)
+        fetch = RowFetcher(self.device)
+        pieces = []
+        with torch.no_grad():
+            handles = [put(0), put(1)]
+            sweep = S2DChunks(eng, vol_shape, steps)
+            slab = torch.empty((C, p0, *plane), dtype=dt, device=self.device)
+            spare = torch.empty_like(slab)
+            prep_into(slab, handles[0])
+            for k in range(n_starts):
+                if k + 2 < n_starts:
+                    handles.append(put(k + 2))
+                sweep.accumulate(slab, 0, chunk_valid(k))
+                n2 = 2 * sweep.owned_rows(k)
+                rows = torch.empty((n2, *plane), dtype=torch.uint8,
+                                   device=self.device)
+                sweep.finish(k, rows)
+                with eng.phase("pack"):
+                    r = rows[:, :ny, :nz]
+                    packed = pack_mask6(r) if self.pack_mask \
+                        else r.contiguous()
+                with eng.phase("d2h"):
+                    fetch.put(packed)
+                pieces.append(n2)
+                if k < n_starts - 1:
+                    spare[:, :p0 - n2].copy_(slab[:, n2:])
+                    prep_into(spare[:, p0 - n2:], handles[k + 1])
+                    handles[k + 1] = None
+                    slab, spare = spare, slab
+        t0_ = time.perf_counter()
+        segs = [_unpack_mask6(p, (n2, ny, nz)) if self.pack_mask else p
+                for n2, p in zip(pieces, fetch.results())]
+        seg = np.concatenate(segs, 0)[:nx]
+        self._add_seconds("revert", t0_)
+        return seg
 
     @classmethod
     def from_model_folder(cls, model_folder: str, fold=0,
@@ -476,7 +931,8 @@ def turbo_predict_entry():
                     help="disable empty-tile (air) skipping")
     ap.add_argument("--tile_batch", type=int, default=8)
     ap.add_argument("--host_revert", action="store_true",
-                    help="not ported yet (raises)")
+                    help="fetch the target-grid mask (6-bit packed) and "
+                         "revert it on the host (also FNN_HOST_REVERT=1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
     args = ap.parse_args()

@@ -13,6 +13,14 @@ with nvcc's stderr; nothing falls back to the plain versions.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
 
+The host library (``csrc/host_ops.cpp``: the CT preprocess, the non-air
+bounding box and the nearest mask revert of the turbo pipeline's host
+route) is plain C++ for the host: :func:`host_library` builds it with the
+host compiler (``$CXX``, else ``c++``), not nvcc, so it builds where there is
+no CUDA toolkit, into ``_build/host-<hash>/`` keyed by the source, the flags
+and the compiler's version. Its failed build raises with the compiler's
+stderr too.
+
 nvcc runs with ``-Xptxas -v``: what ptxas reports per kernel (registers,
 spills, stack) is kept beside the library as ``ptxas.txt`` and read back by
 :func:`ptxas_report`.
@@ -52,6 +60,31 @@ SIGNATURES = {
     # x_lo, x_hi, y_lo, y_hi, stream
     "fnn_scatter_accumulate": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                _i, _i, _i, _i, _i, _i, _i, _p],
+}
+
+HOST_SOURCE = os.path.join(CSRC, "host_ops.cpp")
+HOST_LIB_NAME = "libfnn_hostops.so"
+#: engine/CMakeLists.txt's flags for the JAX package's copy, plus what a
+#: shared library built by hand needs
+HOST_FLAGS = ["-O3", "-march=native", "-fno-math-errno", "-fPIC", "-shared",
+              "-std=c++17"]
+_i16p = ctypes.POINTER(ctypes.c_int16)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_f32p = ctypes.POINTER(ctypes.c_float)
+#: C signatures of csrc/host_ops.cpp
+HOST_SIGNATURES = {
+    # src, in_shape, n_ch, lb, ub, mean, std, out_shape, out
+    "fnn_preprocess_ct_i16": [_i16p, _i64p, _ll, _f32p, _f32p, _f32p, _f32p,
+                              _i64p, _u16p],
+    # ... out_shape, box, out
+    "fnn_preprocess_ct_i16_box": [_i16p, _i64p, _ll, _f32p, _f32p, _f32p,
+                                  _f32p, _i64p, _i64p, _u16p],
+    # src, in_shape, n_ch, lb, out_lo, out_hi
+    "fnn_nonair_bbox_i16": [_i16p, _i64p, _ll, _f32p, _i64p, _i64p],
+    # src, in_shape, out_shape, out
+    "fnn_nearest_revert_u8": [_u8p, _i64p, _i64p, _u8p],
 }
 
 #: dtype codes shared with csrc/common.cuh
@@ -139,6 +172,54 @@ def library(defines: tuple = ()) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fnn_error_string.argtypes = [ctypes.c_int]
     lib.fnn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++`` on PATH."""
+    cxx = os.environ.get("CXX") or "c++"
+    path = shutil.which(cxx)
+    if not path:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found (set CXX); "
+                           f"the port's host library is built from "
+                           f"{HOST_SOURCE} at first use")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """Build (once per source hash, flags and compiler) and load the host
+    library of csrc/host_ops.cpp. A failed build raises with the
+    compiler's stderr; nothing falls back."""
+    cxx = host_compiler()
+    h = hashlib.sha256()
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    h.update(subprocess.run([cxx, "--version"], capture_output=True,
+                            text=True, check=True).stdout.encode())
+    final_dir = os.path.join(BUILD_ROOT, "host-" + h.hexdigest()[:16])
+    final_lib = os.path.join(final_dir, HOST_LIB_NAME)
+    if not os.path.isfile(final_lib):
+        os.makedirs(BUILD_ROOT, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="build-host-", dir=BUILD_ROOT)
+        try:
+            built = os.path.join(tmp, HOST_LIB_NAME)
+            res = subprocess.run([cxx, *HOST_FLAGS, HOST_SOURCE, "-o", built],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(cxx)} failed on {HOST_SOURCE} "
+                    f"(exit {res.returncode}):\n{res.stderr}")
+            os.makedirs(final_dir, exist_ok=True)
+            os.replace(built, final_lib)  # atomic: concurrent builds agree
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    lib = ctypes.CDLL(final_lib)
+    for name, argtypes in HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

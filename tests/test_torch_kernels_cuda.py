@@ -561,3 +561,78 @@ def test_train_step_cuda_matches_cpu(cuda_device):
     np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-4)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- turbo host route: streamed
+@pytest.mark.parametrize("folds", [1, 2])
+def test_streamed_host_route_launches_kernels_from_pinned_buffers(
+        cuda_device, monkeypatch, folds):
+    """The streamed host route on the card: kernels A, B and C launch (C
+    with one fold; the fold route accumulates with torch ops, as JAX
+    does), every strip is staged in pinned memory and every row piece
+    lands in pinned memory, and the mask equals the fused host route's
+    (bit for bit: one set of kernels on one card) and the CPU run's
+    (fp32, TF32 off, >= 0.999)."""
+    from fast_nnunet_tpu_torch.inference import engine as engine_module
+    from fast_nnunet_tpu_torch.inference.turbo import (TurboConfig,
+                                                       TurboPipeline)
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  random_plain_params)
+    pinned = {"strips": [], "rows": []}
+    put_strip = engine_module.StripUploader.put
+    put_rows = engine_module.RowFetcher.put
+
+    def strip(self, shape, dtype, fill):
+        out = put_strip(self, shape, dtype, fill)
+        pinned["strips"] += [b.is_pinned() for b in self._bufs
+                             if b is not None]
+        return out
+
+    def rows(self, t):
+        put_rows(self, t)
+        if self.cuda:
+            pinned["rows"].append(self._pieces[-1][0].is_pinned())
+    monkeypatch.setattr(engine_module.StripUploader, "put", strip)
+    monkeypatch.setattr(engine_module.RowFetcher, "put", rows)
+
+    cfg = TurboConfig(patch_size=(32, 32, 32), target_spacing=(1.0, 1.1, 1.05),
+                      mean=127.475, std=318.463, lower_bound=-1024.0,
+                      upper_bound=3071.0, num_classes=K)
+    vol = np.full((40, 120, 44), -1024, np.int16)
+    vol[4:36, 10:110, 6:40] = (np.random.RandomState(9).rand(32, 100, 34)
+                               * 900 - 100).astype(np.int16)
+    trees = [random_plain_params(ARCH, 1, K, seed=s) for s in range(folds)]
+    masks, counts = {}, {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (cuda_device, torch.device("cpu")):
+            net = make_s2d_engine_net(ARCH, K, 1,
+                                      compute_dtype=torch.float32).to(dev)
+            net.set_stats_min_voxels(1)
+            s2d = [net.convert_params(t) for t in trees]
+            eng = SlidingWindowEngine(net, cfg.patch_size, K,
+                                      compute_dtype=torch.float32,
+                                      sweep_acc_dtype=torch.float32,
+                                      tile_batch=4, device=dev)
+            pipe = TurboPipeline(eng, cfg, host_preprocess=True, air_skip=True)
+            n0 = [f.launches for f in (spatial_sum_sumsq, grouped_argmax,
+                                       s2d_accumulate)]
+            masks[dev.type] = pipe.predict_volume(s2d, vol, (1.0, 1.0, 1.0))
+            assert pipe.route == "streamed"
+            counts[dev.type] = [f.launches - n for f, n in zip(
+                (spatial_sum_sumsq, grouped_argmax, s2d_accumulate), n0)]
+            if dev.type == "cuda":
+                monkeypatch.setenv("FNN_TURBO_STREAM", "0")
+                fused = pipe.predict_volume(s2d, vol, (1.0, 1.0, 1.0))
+                monkeypatch.delenv("FNN_TURBO_STREAM")
+                assert pipe.route == "host"
+                np.testing.assert_array_equal(fused, masks["cuda"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    a, b, c = counts["cuda"]
+    assert a > 0 and b > 0 and (c > 0 if folds == 1 else c == 0)
+    assert counts["cpu"] == [0, 0, 0]
+    assert pinned["strips"] and all(pinned["strips"])
+    assert pinned["rows"] and all(pinned["rows"])
+    assert (masks["cuda"] == masks["cpu"]).mean() >= 0.999

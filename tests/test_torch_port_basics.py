@@ -29,7 +29,7 @@ for n in ("export.export_model", "fast_inference.inferencer",
           "fast_inference.rest_api", "fast_inference.main",
           "fast_inference.config_manager", "fast_inference.vtk_export",
           "inference.jhu_predictor", "inference.data_iterators",
-          "inference.examples", "utils.fastgz"):
+          "inference.examples", "utils.fastgz", "utils.hostops"):
     assert pkg.__name__ + "." + n in names, n
 """
 
@@ -40,13 +40,13 @@ def test_port_imports_no_jax():
     fast_nnunet_tpu is a prefix of the port's own name); the training,
     planning, preprocessing, postprocessing, ensembling and evaluation
     modules count too, and the export, fast-inference, JHU, data-iterator,
-    examples and libdeflate modules."""
+    examples and libdeflate modules, and the host library's binding."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 86, res.stdout
+    assert n_modules >= 87, res.stdout
 
 
 def test_resolve_device_never_falls_back():

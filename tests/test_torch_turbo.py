@@ -145,15 +145,19 @@ def test_golden_model_end_to_end(tmp_path):
     assert (seg == seg_j).mean() >= 0.999
 
 
-def test_unported_routes_raise(pair):
+def test_host_route_argument_errors(pair):
+    """The host route takes CT channels only; host_revert and fold
+    ensembles, raising before they were ported, now run."""
     _, teng, _, tree = pair
-    with pytest.raises(NotImplementedError):
-        TurboPipeline(teng, TurboConfig(**CFG), host_preprocess=True)
-    with pytest.raises(NotImplementedError):
-        TurboPipeline(teng, TurboConfig(**CFG), host_revert=True)
-    with pytest.raises(NotImplementedError):
-        TurboPipeline(teng, TurboConfig(**CFG)).predict_volume(
-            [tree, tree], np.zeros((16, 8, 8), np.float32), (1, 1, 1))
+    zscore = dict(CFG, channels=[{"scheme": "zscore"}])
+    with pytest.raises(ValueError):
+        TurboPipeline(teng, TurboConfig(**zscore), host_preprocess=True)
+    pipe = TurboPipeline(teng, TurboConfig(**CFG), host_revert=True)
+    vol = np.zeros((16, 8, 8), np.float32)
+    assert pipe.predict_volume(tree, vol, (1, 1, 1)).shape == vol.shape
+    seg = TurboPipeline(teng, TurboConfig(**CFG)).predict_volume(
+        [tree, tree], vol, (1, 1, 1))
+    assert seg.shape == vol.shape and seg.dtype == np.uint8
 
 
 def test_bone_turbo_ini():
