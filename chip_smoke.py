@@ -153,7 +153,7 @@ the card. Run from the repository root:
    the model-folder route's (``FastnnUNetInferencer(model_folder=...)``);
    ``/predict_array`` of a 160x192x192 f32 volume (1.44 GB of logits
    back), bit-equal to ``predict_logits_from_preprocessed`` in process;
-   ``/predict`` with VTK on a 64^3 CT; ``/predict_batch`` over two;
+   ``/predict`` with VTK on a 48^3 CT; ``/predict_batch`` over two;
    ``fast_nnunet_jhu_predict_torch`` on one case (60 class files). Prints
    seconds per request, peak device memory, whether libdeflate loaded, and
    one ``{"fast_inference": ...}`` line.
@@ -181,6 +181,27 @@ the card. Run from the repository root:
    bf16 agreements with phase 4's mask and the reference grid's are
    printed; it is held (>= 0.999) with f32 accumulators to the fused
    sweep batched as its coset rows (the same tiles, forwards and order).
+16. The reference's data (``formats:``), in phase 11's root after phase
+   12: phase 11's raw dataset written again as ``.mha`` (zlib;
+   Dataset987_FormatsCT, the same voxels and seed; the test label also
+   through NRRD), its fingerprint, phase 11's plans moved over with
+   ``fast_nnunet_move_plans_torch`` (reader MhaIO, the same topology),
+   ``fast_nnunet_preprocess_torch -store fnnz`` (seconds, bytes against
+   phase 11's ``.npy`` store, the zstd backend), every case decoded
+   bit-equal to phase 11's store (data, seg, properties); one case through
+   ``write_b2nd`` and ``fast_nnunet_convert_b2nd_torch``, bit-equal; a
+   seeded reference-named ``.pth`` of the planned topology;
+   ``fast_nnunet_train_torch 987 3d_fullres 0 -pretrained_weights`` 10 + 2
+   iterations fed from the ``.fnnz`` store with its final validation (the
+   import report: every non-seg tensor converted; the first conv equal to
+   the ``.pth`` before step 1; kernel A's launches per step against the
+   gate's count; fed s/iteration beside phase 11's ``.npy`` figure and the
+   loader threads' BrickReader seconds); ``fast_nnunet_predict_torch`` on
+   the ``.mha`` test case, the same CT as a DICOM series
+   (``write_dicom_series``) through ``fast_nnunet_dicom_to_nifti_torch``
+   (voxels and spacing equal) and through ``DicomIO`` and
+   ``predict_single_npy_array``: its mask equal to the ``.mha`` one. One
+   ``{"formats": ...}`` line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -975,6 +996,11 @@ def host_route_path(torch, pipe, tree, tree2, ct, spacing, seg_dev,
     agree = float((mask == seg_dev).mean())
     print(f"host: host route vs phase 2's device-route mask: agreement "
           f"{agree:.6f}")
+    # JAX's own two routes agree no better at this compute: 0.988597 and
+    # 0.995677 (seeds 0 and 1) on a 4-stage cut of this student in bf16 on
+    # a 192 x 192 x 160 CT on the CPU (tools/route_agreement.py); its
+    # > 0.995 pin is an f32 setting, which the port clears
+    # (tests/test_torch_turbo_host.py)
     check(agree >= 0.99, f"host and device routes agree only {agree}")
 
     # ---- the preprocessed grid: host C++ against the device route
@@ -1327,9 +1353,9 @@ def write_train_dataset(root, n_cases=4, seed=0, ds=TRAIN_DS,
 
 def write_raw_ct_dataset(raw_root, dataset=PIPELINE_DS, shape=TRAIN_CASE,
                          spacing=TRAIN_SPACING, n_train=PIPELINE_N_TRAIN,
-                         n_classes=TRAIN_K, seed=0):
-    """A raw nnU-Net dataset of int16 CTs written as .nii.gz through the
-    port's NIfTI writer: ``n_train`` cases in imagesTr/labelsTr and one
+                         n_classes=TRAIN_K, seed=0, file_ending=".nii.gz"):
+    """A raw nnU-Net dataset of int16 CTs written as ``file_ending``
+    (``.nii.gz`` or ``.mha``) through the port's writers: ``n_train`` cases in imagesTr/labelsTr and one
     more in imagesTs/labelsTs, dataset.json with a CT channel. Air is
     -1024 HU (no voxel is 0, so crop_to_nonzero keeps the whole volume), a
     soft-tissue ellipsoid 20-60 HU, and one bone cuboid per foreground class
@@ -1337,6 +1363,7 @@ def write_raw_ct_dataset(raw_root, dataset=PIPELINE_DS, shape=TRAIN_CASE,
     every case."""
     import math
     import numpy as np
+    from fast_nnunet_tpu_torch.imageio.mha import MhaIO, write_mha
     from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO, write_nifti
     from fast_nnunet_tpu_torch.utils.dataset_io import generate_dataset_json
     from fast_nnunet_tpu_torch.utils.io import maybe_mkdir_p
@@ -1366,17 +1393,122 @@ def write_raw_ct_dataset(raw_root, dataset=PIPELINE_DS, shape=TRAIN_CASE,
         for sub in ("images", "labels"):
             maybe_mkdir_p(os.path.join(folder, sub + split))
         case = f"case_{i:03d}"
-        write_nifti(os.path.join(folder, "images" + split,
-                                 f"{case}_0000.nii.gz"),
-                    img.transpose(2, 1, 0), spacing=list(spacing)[::-1])
-        NiftiIO().write_seg(seg, os.path.join(folder, "labels" + split,
-                                              case + ".nii.gz"),
-                            {"spacing": list(spacing)})
+        rw = MhaIO if file_ending == ".mha" else NiftiIO
+        image = os.path.join(folder, "images" + split,
+                             f"{case}_0000{file_ending}")
+        if file_ending == ".mha":
+            write_mha(image, img.transpose(2, 1, 0), list(spacing)[::-1])
+        else:
+            write_nifti(image, img.transpose(2, 1, 0),
+                        spacing=list(spacing)[::-1])
+        rw().write_seg(seg, os.path.join(folder, "labels" + split,
+                                         case + file_ending),
+                       {"spacing": list(spacing)})
     generate_dataset_json(
         folder, {0: "CT"},
         {"background": 0, **{f"bone_{c}": c for c in range(1, n_classes)}},
-        n_train, ".nii.gz", dataset_name=dataset)
+        n_train, file_ending, dataset_name=dataset)
     return folder
+
+
+def write_dicom_series(folder, vol, spacing, explicit=True, slope=1.0,
+                       intercept=0.0, order=None):
+    """An uncompressed DICOM series of an int16 (Z, Y, X) volume, one file
+    per slice: a 128-byte preamble, ``DICM``, the meta group with the
+    transfer syntax (explicit or implicit VR little endian), then slice
+    thickness, instance number, ImagePositionPatient (z * dz),
+    ImageOrientationPatient (identity), rows, columns, PixelSpacing
+    (dy, dx), 16 signed bits, RescaleIntercept / RescaleSlope and the
+    pixels. ``order`` permutes the files' names (a scanner's arbitrary
+    file order)."""
+    import struct
+    import numpy as np
+
+    def el(group, elem, vr, value):
+        if len(value) % 2:
+            value += b"\x00"
+        if not explicit and group != 0x0002:
+            return struct.pack("<HHI", group, elem, len(value)) + value
+        if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+            return struct.pack("<HH2sHI", group, elem, vr, 0,
+                               len(value)) + value
+        return struct.pack("<HH2sH", group, elem, vr, len(value)) + value
+
+    def ds(*xs):
+        return "\\".join(repr(float(x)) for x in xs).encode()
+
+    os.makedirs(folder, exist_ok=True)
+    ts = b"1.2.840.10008.1.2.1" if explicit else b"1.2.840.10008.1.2"
+    dz, dy, dx = (float(s) for s in spacing)
+    rows, cols = vol.shape[1:]
+    order = list(range(vol.shape[0])) if order is None else list(order)
+    for i, z in enumerate(order):
+        body = (el(0x0018, 0x0050, b"DS", ds(dz))
+                + el(0x0020, 0x0013, b"IS", str(z + 1).encode())
+                + el(0x0020, 0x0032, b"DS", ds(0.0, 0.0, z * dz))
+                + el(0x0020, 0x0037, b"DS", ds(1, 0, 0, 0, 1, 0))
+                + el(0x0028, 0x0002, b"US", struct.pack("<H", 1))
+                + el(0x0028, 0x0010, b"US", struct.pack("<H", rows))
+                + el(0x0028, 0x0011, b"US", struct.pack("<H", cols))
+                + el(0x0028, 0x0030, b"DS", ds(dy, dx))
+                + el(0x0028, 0x0100, b"US", struct.pack("<H", 16))
+                + el(0x0028, 0x0103, b"US", struct.pack("<H", 1))
+                + el(0x0028, 0x1052, b"DS", ds(intercept))
+                + el(0x0028, 0x1053, b"DS", ds(slope))
+                + el(0x7FE0, 0x0010, b"OW",
+                     np.ascontiguousarray(vol[z], "<i2").tobytes()))
+        with open(os.path.join(folder, f"slice_{i:04d}.dcm"), "wb") as f:
+            f.write(b"\x00" * 128 + b"DICM")
+            f.write(el(0x0002, 0x0010, b"UI", ts))
+            f.write(body)
+
+
+def reference_key(path):
+    """The reference nnU-Net (dynamic-network-architectures) state_dict key
+    of a JAX-package tree path under ``params``: the inverse of the port's
+    ``utils/torch_import.translate_torch_key``."""
+    import re
+    p = path[1:]
+    leaf = "bias" if p[-1] == "bias" else "weight"
+    if p[1].startswith("transpconv_"):
+        return f"decoder.transpconvs.{p[1][len('transpconv_'):]}.{leaf}"
+    if p[1].startswith("seg_head_"):
+        return f"decoder.seg_layers.{p[1][len('seg_head_'):]}.{leaf}"
+    if p[1] == "stem":
+        return f"encoder.stem.convs.0.{p[2]}.{leaf}"
+    m = re.match(r"stage_(\d+)_block_(\d+)$", p[1])
+    if m:
+        blk = f"encoder.stages.{m.group(1)}.blocks.{m.group(2)}"
+        if p[2] in ("skip_conv", "skip_norm"):
+            return f"{blk}.skip.{0 if p[2] == 'skip_conv' else 1}.{leaf}"
+        return f"{blk}.conv{p[2][-1]}.{p[2][:-1]}.{leaf}"
+    return (f"{p[0]}.stages.{p[1][len('stage_'):]}.convs."
+            f"{p[2][len('block_'):]}.{p[3]}.{leaf}")
+
+
+def reference_state_dict(torch, net, seed):
+    """A seeded state_dict of ``net``'s topology under the reference's key
+    names and torch layouts (conv (O, I, *k), transposed conv (I, O, *k)),
+    as a reference nnU-Net checkpoint's ``network_weights`` holds it:
+    kernels with He-normal scale, norm scales near 1, small biases."""
+    import math
+    from fast_nnunet_tpu_torch.models.unet import jax_param_paths
+    gen = torch.Generator().manual_seed(int(seed))
+    sd = {}
+    for path, prm, kind in jax_param_paths(net):
+        if path[0] != "params":
+            continue
+        shape = tuple(prm.shape)
+        if path[-1] == "kernel":
+            cin = shape[0] if kind == "transpconv" else shape[1]
+            std = math.sqrt(2.0 / (cin * math.prod(shape[2:])))
+            v = torch.randn(shape, generator=gen) * std
+        elif path[-1] == "scale":
+            v = 1.0 + 0.1 * torch.randn(shape, generator=gen)
+        else:
+            v = 0.1 * torch.randn(shape, generator=gen)
+        sd[reference_key(path)] = v
+    return sd
 
 
 def conv_flops(torch, net, x):
@@ -1864,7 +1996,8 @@ def host_seconds(targets):
 
 def pipeline_path(torch, dev, a_row, iters=10, warm=3):
     """Phase 11 (``pipeline:``): nnU-Net's workflow from a raw dataset
-    through the port's entry points, in process (docstring step 11)."""
+    through the port's entry points, in process (docstring step 11); then
+    phases 12 and 16 in the same temporary root."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="fnn_chip_smoke_pipeline_")
@@ -1875,8 +2008,9 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
         "FNNT_NUM_EPOCHS"]}
     os.environ.update(env)
     try:
-        _pipeline(torch, dev, a_row, root, iters, warm)
+        fed_npy = _pipeline(torch, dev, a_row, root, iters, warm)
         resenc_path(torch, dev, a_row)
+        formats_path(torch, dev, a_row, fed_npy)
     finally:
         for k, v in old.items():
             if v is None:
@@ -2080,6 +2214,311 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
         "kernel_a_run_launches": run_launches,
         "kernel_a_shapes": [f"{shape} {dtype}" for shape, dtype in a_shapes],
         "topology": topo, "cv_fg_dice": dice[0], "test_fg_dice": test_dice}}))
+    return fed
+
+
+# ------------------------------------------------------------------ formats
+FORMATS_DS_ID = 987
+FORMATS_DS = "Dataset987_FormatsCT"
+
+
+def formats_path(torch, dev, a_row, fed_npy, iters=10, warm=3):
+    """Phase 16 (``formats:``): the reference's data through the port, in
+    phase 11's temporary root after phase 12 (docstring step 16)."""
+    t_phase = time.perf_counter()
+    try:
+        out = _formats(torch, dev, a_row, fed_npy, iters, warm)
+    finally:
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"formats: phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"formats": out}))
+
+
+def _store_bytes(folder, suffixes):
+    return sum(os.path.getsize(os.path.join(folder, f))
+               for f in os.listdir(folder) if f.endswith(suffixes))
+
+
+def _same_properties(got, want, keys):
+    import numpy as np
+    for k in keys:
+        a, b = got[k], want[k]
+        if isinstance(a, dict):
+            if sorted(a) != sorted(b) or not all(
+                    np.array_equal(a[c], b[c]) for c in a):
+                return False
+        elif not np.array_equal(np.asarray(a), np.asarray(b)):
+            return False
+    return True
+
+
+def _formats(torch, dev, a_row, fed_npy, iters, warm):
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.dicom import (DicomIO,
+                                                     convert_dicom_entry)
+    from fast_nnunet_tpu_torch.imageio.mha import MhaIO
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.imageio.nrrd import NrrdIO
+    from fast_nnunet_tpu_torch.inference.predictor import NNUNetPredictor
+    from fast_nnunet_tpu_torch.models.factory import \
+        build_network_from_arch_dict
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.planning.plans_transfer import move_plans_entry
+    from fast_nnunet_tpu_torch.run import run_training as rt
+    from fast_nnunet_tpu_torch.run.convert_b2nd import convert_b2nd_entry
+    from fast_nnunet_tpu_torch.run.plan_and_preprocess import (
+        extract_fingerprint_entry, preprocess_entry)
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.training.dataset import NpyCaseDataset
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+    from fast_nnunet_tpu_torch.training.zstd_store import (BrickReader,
+                                                           ZstdCaseDataset)
+    from fast_nnunet_tpu_torch.utils import zstd
+    from fast_nnunet_tpu_torch.utils.b2nd import write_b2nd
+    from fast_nnunet_tpu_torch.utils.io import join, load_json, save_pickle
+
+    ds, n = FORMATS_DS, PIPELINE_N_TRAIN
+    pre_root = os.environ["nnUNet_preprocessed"]
+    host = {}
+    # ---- the raw dataset again, as .mha (phase 11's voxels and seed)
+    t0 = time.perf_counter()
+    raw = write_raw_ct_dataset(os.environ["nnUNet_raw"], dataset=ds,
+                               file_ending=".mha")
+    host["write_raw_s"] = time.perf_counter() - t0
+    case = f"case_{n:03d}"
+    img, img_props = MhaIO().read_images([join(raw, "imagesTs",
+                                               f"{case}_0000.mha")])
+    ref, ref_props = NiftiIO().read_images([join(
+        os.environ["nnUNet_raw"], PIPELINE_DS, "imagesTs",
+        f"{case}_0000.nii.gz")])
+    seg_mha = MhaIO().read_seg(join(raw, "labelsTs", case + ".mha"))[0]
+    nrrd = join(raw, "labelsTs", case + ".nrrd")
+    NrrdIO().write_seg(seg_mha[0], nrrd, img_props)
+    seg_nrrd, nrrd_props = NrrdIO().read_seg(nrrd)
+    check(np.array_equal(img, ref) and img_props["spacing"] ==
+          list(ref_props["spacing"]), "the .mha test case differs from "
+          "phase 11's .nii.gz")
+    check(np.array_equal(seg_nrrd, seg_mha) and
+          nrrd_props["spacing"] == img_props["spacing"],
+          "the .nrrd label differs from the .mha label")
+    print(f"formats: raw dataset {ds}: {n} + 1 cases {TRAIN_CASE} int16 as "
+          f".mha (zlib) in {host['write_raw_s']:.3f} s, equal to phase 11's "
+          f".nii.gz voxels and spacing; the test label through NRRD (gzip) "
+          f"equal")
+
+    # ---- fingerprint, phase 11's plans moved over, preprocess -store fnnz
+    t0 = time.perf_counter()
+    extract_fingerprint_entry(["-d", str(FORMATS_DS_ID)])
+    host["fingerprint_s"] = time.perf_counter() - t0
+    fp = load_json(join(pre_root, ds, "dataset_fingerprint.json"))
+    fp11 = load_json(join(pre_root, PIPELINE_DS, "dataset_fingerprint.json"))
+    check(fp["foreground_intensity_properties_per_channel"] ==
+          fp11["foreground_intensity_properties_per_channel"],
+          "the .mha fingerprint's intensities differ from phase 11's")
+    move_plans_entry(["-s", str(PIPELINE_DS_ID), "-t", str(FORMATS_DS_ID),
+                      "-sp", "nnUNetPlans"])
+    plans = load_json(join(pre_root, ds, "nnUNetPlans.json"))
+    check(plans["image_reader_writer"] == "MhaIO",
+          f"moved plans read with {plans['image_reader_writer']}")
+    check(plan_topology(plans["configurations"]["3d_fullres"]) ==
+          PIPELINE_3D_FULLRES, "moved plans are not phase 11's topology")
+    t0 = time.perf_counter()
+    preprocess_entry(["-d", str(FORMATS_DS_ID), "-c", "3d_fullres", "-store",
+                      "fnnz"])
+    host["preprocess_fnnz_s"] = time.perf_counter() - t0
+    store = join(pre_root, ds, "nnUNetPlans_3d_fullres")
+    store11 = join(pre_root, PIPELINE_DS, "nnUNetPlans_3d_fullres")
+    t0 = time.perf_counter()
+    fnnz, npy = ZstdCaseDataset(store), NpyCaseDataset(store11)
+    check(fnnz.keys() == npy.keys() and len(fnnz) == n,
+          f".fnnz cases {fnnz.keys()} vs .npy {npy.keys()}")
+    keys = ("spacing", "shape_before_cropping", "bbox_used_for_cropping",
+            "shape_after_cropping_and_before_resampling", "class_locations")
+    for k in npy.keys():
+        d, s, p = fnnz.load_case(k, mmap=False)
+        d11, s11, p11 = npy.load_case(k)
+        check(d.dtype == d11.dtype and d.tobytes() == d11.tobytes(),
+              f"{k}: .fnnz data differs from phase 11's .npy")
+        check(s.dtype == s11.dtype and s.tobytes() == s11.tobytes(),
+              f"{k}: .fnnz seg differs from phase 11's .npy")
+        check(_same_properties(p, p11, keys),
+              f"{k}: properties differ from phase 11's")
+    host["decode_check_s"] = time.perf_counter() - t0
+    b_fnnz = _store_bytes(store, (".fnnz",))
+    b_npy = _store_bytes(store11, (".npy",))
+    backend = zstd.backend()
+    print(f"formats: fast_nnunet_extract_fingerprint_torch "
+          f"{host['fingerprint_s']:.3f} s (intensities equal phase 11's); "
+          f"fast_nnunet_move_plans_torch -s {PIPELINE_DS_ID} (reader MhaIO, "
+          f"phase 11's topology); fast_nnunet_preprocess_torch -store fnnz "
+          f"{host['preprocess_fnnz_s']:.3f} s; every case decodes bit-equal "
+          f"to phase 11's .npy store (data, seg, properties; "
+          f"{host['decode_check_s']:.3f} s); store {b_fnnz} bytes against "
+          f"{b_npy} (.npy), ratio {b_npy / b_fnnz:.3f}; zstd backend "
+          f"{backend}")
+
+    # ---- one case through the reference's .b2nd and back
+    t0 = time.perf_counter()
+    ref_dir, mig = join(pre_root, "b2nd_ref"), join(pre_root, "b2nd_ours")
+    os.makedirs(ref_dir, exist_ok=True)
+    k0 = npy.keys()[0]
+    d11, s11, p11 = npy.load_case(k0)
+    write_b2nd(join(ref_dir, k0 + ".b2nd"), np.asarray(d11))
+    write_b2nd(join(ref_dir, k0 + "_seg.b2nd"), np.asarray(s11))
+    save_pickle(p11, join(ref_dir, k0 + ".pkl"))
+    host["write_b2nd_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_b2nd_entry(["-i", ref_dir, "-o", mig])
+    host["convert_b2nd_s"] = time.perf_counter() - t0
+    d, s, _ = NpyCaseDataset(mig).load_case(k0, mmap=False)
+    check(d.tobytes() == np.asarray(d11).tobytes() and
+          s.tobytes() == np.asarray(s11).tobytes(),
+          "the .b2nd round trip is not bit-equal")
+    print(f"formats: {k0} as .b2nd (write_b2nd {host['write_b2nd_s']:.3f} s,"
+          f" {_store_bytes(ref_dir, ('.b2nd',))} bytes) -> "
+          f"fast_nnunet_convert_b2nd_torch {host['convert_b2nd_s']:.3f} s -> "
+          f".npy, bit-equal")
+
+    # ---- a reference .pth of the planned topology
+    arch = plans["configurations"]["3d_fullres"]["architecture"]
+    net = build_network_from_arch_dict(arch, 1, TRAIN_K,
+                                       compute_dtype=torch.float32)
+    sd = reference_state_dict(torch, net, seed=16)
+    del net
+    pth = join(pre_root, "pretrained_reference.pth")
+    torch.save({"network_weights": sd, "trainer_name": "nnUNetTrainer",
+                "init_args": {"configuration": "3d_fullres", "fold": 0},
+                "current_epoch": 1000}, pth)
+    n_seg = sum(".seg_layers." in k for k in sd)
+    first = "encoder.stages.0.convs.0.conv.weight"
+
+    # ---- fast_nnunet_train_torch 987 3d_fullres 0 -pretrained_weights
+    loaded = {}
+    real_load = rt.load_pretrained_weights
+
+    def load_and_look(trainer, fname):
+        report = real_load(trainer, fname)
+        w = trainer.network.encoder.stages["stage_0"].blocks[
+            "block_0"].conv.weight
+        loaded.update(report=report, equal=bool(torch.equal(
+            w.detach().cpu().float(), sd[first])))
+        return report
+
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm)
+    rt.load_pretrained_weights = load_and_look
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with host_seconds({"brick_read": (BrickReader,
+                                          "__getitem__")}) as spent:
+            rt.run_training_entry([str(FORMATS_DS_ID), "3d_fullres", "0",
+                                   "-pretrained_weights", pth])
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+        rt.load_pretrained_weights = real_load
+    train_wall = time.perf_counter() - t0
+    run_launches = ka.spatial_sum_sumsq.launches
+    report = loaded["report"]
+    check(len(report["converted"]) == len(sd) - n_seg and
+          len(report["skipped_seg"]) == n_seg and not (
+              report["unmatched"] or report["shape_mismatch"] or
+              report["missing_in_template"]),
+          f".pth import report {({k: len(v) for k, v in report.items()})}")
+    check(loaded["equal"], "the first conv differs from the .pth tensor "
+          "before step 1")
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    x1 = torch.zeros((1, 1, *PIPELINE_3D_FULLRES["patch_size"]), device=dev)
+    n_gate, n_gate_remat = gated_norms(torch, trainer.network, x1)
+    predicted = n_gate + n_gate_remat
+    tl = trainer.logger.logging
+    reads = spent["brick_read"]
+    print(f"formats: fast_nnunet_train_torch {FORMATS_DS_ID} 3d_fullres 0 "
+          f"-pretrained_weights <.pth> ({iters} iterations from the .fnnz "
+          f"store, final validation) {train_wall:.3f} s; .pth import: "
+          f"{len(report['converted'])} tensors converted, {n_seg} seg "
+          f"tensors skipped, first conv equal to the .pth before step 1; "
+          f"fed seconds per iteration {fed:.4f} (.fnnz) against phase 11's "
+          f"{fed_npy:.4f} (.npy); {len(reads)} BrickReader slices, "
+          f"{sum(reads):.3f} s over the loader threads "
+          f"({1e3 * sum(reads) / max(1, len(reads)):.3f} ms each)")
+    print(f"formats: kernel A launches per train step {cap['step_launches']} "
+          f"(predicted {predicted}); {run_launches} in the whole run; epoch "
+          f"train loss {tl['train_losses'][0]:.4f}, val loss "
+          f"{tl['val_losses'][0]:.4f}")
+    check(all(k == predicted for k in cap["step_launches"]),
+          f"kernel A launches per step {cap['step_launches']} != {predicted}")
+    check(np.isfinite(tl["train_losses"][0]) and
+          np.isfinite(tl["val_losses"][0]),
+          f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
+    kernel_a_step_shapes(torch, "formats", cap["a_calls"],
+                         cap["step_launches"][1], a_row)
+    step_launches = cap["step_launches"]
+    trainer.network = None
+    del trainer, x1
+    cap.clear()
+    torch.cuda.empty_cache()
+
+    # ---- predict the .mha test case; the same CT as a DICOM series
+    results = join(os.environ["nnUNet_results"], ds)
+    pred = join(os.environ["nnUNet_results"], "formats_pred")
+    t0 = time.perf_counter()
+    predict_entry_point(["-i", join(raw, "imagesTs"), "-o", pred, "-d", ds,
+                         "-c", "3d_fullres", "-f", "0", "--disable_tta"])
+    host["predict_mha_s"] = time.perf_counter() - t0
+    mask_mha = MhaIO().read_seg(join(pred, case + ".mha"))[0][0]
+    check(mask_mha.shape == TRAIN_CASE, f".mha mask {mask_mha.shape}")
+    dcm = join(pre_root, "dicom_" + case)
+    t0 = time.perf_counter()
+    write_dicom_series(dcm, img[0].astype(np.int16), img_props["spacing"])
+    host["write_dicom_s"] = time.perf_counter() - t0
+    nii = join(pre_root, case + "_from_dicom.nii.gz")
+    t0 = time.perf_counter()
+    convert_dicom_entry([dcm, nii])
+    host["dicom_to_nifti_s"] = time.perf_counter() - t0
+    conv, conv_props = NiftiIO().read_images([nii])
+    check(np.array_equal(conv, img) and np.allclose(
+        conv_props["spacing"], img_props["spacing"], rtol=0, atol=1e-6),
+        "fast_nnunet_dicom_to_nifti_torch changed the voxels or spacing")
+    t0 = time.perf_counter()
+    data, props = DicomIO().read_images([dcm])
+    host["read_dicom_s"] = time.perf_counter() - t0
+    check(np.array_equal(data, img) and props["spacing"] ==
+          img_props["spacing"], "DicomIO differs from the .mha case")
+    predictor = NNUNetPredictor(use_mirroring=False, device=dev)
+    predictor.initialize_from_trained_model_folder(
+        join(results, "NNUNetTrainer__nnUNetPlans__3d_fullres"),
+        use_folds=[0])
+    t0 = time.perf_counter()
+    mask_dcm = predictor.predict_single_npy_array(data, props)
+    host["predict_dicom_s"] = time.perf_counter() - t0
+    same = float((np.asarray(mask_dcm) == mask_mha).mean())
+    labels = len(np.unique(mask_mha))
+    print(f"formats: fast_nnunet_predict_torch on the .mha test case "
+          f"{host['predict_mha_s']:.3f} s (reader MhaIO), mask {mask_mha.shape}"
+          f" with {labels} labels; the CT as {TRAIN_CASE[0]} DICOM slices "
+          f"({host['write_dicom_s']:.3f} s), fast_nnunet_dicom_to_nifti_torch "
+          f"{host['dicom_to_nifti_s']:.3f} s (voxels and spacing equal), "
+          f"DicomIO {host['read_dicom_s']:.3f} s, predict_single_npy_array "
+          f"{host['predict_dicom_s']:.3f} s; DICOM and .mha masks agree "
+          f"{same:.6f}")
+    check(mask_dcm.shape == mask_mha.shape and same == 1.0,
+          f"DICOM and .mha masks differ ({same})")
+    return {"host_s": host, "fed_s_per_iter": fed, "fed_s_per_iter_npy":
+            fed_npy, "store_bytes_fnnz": b_fnnz, "store_bytes_npy": b_npy,
+            "zstd_backend": backend, "brick_reads": len(reads),
+            "brick_read_s": sum(reads), "train_wall_s": train_wall,
+            "pth_converted": len(report["converted"]),
+            "pth_skipped_seg": n_seg,
+            "kernel_a_launches_per_step": step_launches,
+            "kernel_a_predicted_per_step": predicted,
+            "kernel_a_run_launches": run_launches,
+            "dicom_vs_mha_mask": same}
 
 
 # ------------------------------------------------------------------ resenc
@@ -2750,9 +3189,9 @@ def small_train_step(torch, dev, cls="PlainConvUNet", arch=SMALL_ARCH,
 
 # ----------------------------------------------- export and fast inference
 FAST_DS = "Dataset991_FastInference"
-FAST_CT_SLICES = 64        # N of the 512 x 512 x N /predict case
+FAST_CT_SLICES = 24        # N of the 512 x 512 x N /predict case
 FAST_ARRAY_SHAPE = (160, 192, 192)
-FAST_SMALL_CT = (64, 64, 64)
+FAST_SMALL_CT = (48, 48, 48)
 
 
 def write_student_model_folder(folder, seed=0):

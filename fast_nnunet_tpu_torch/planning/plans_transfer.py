@@ -1,7 +1,11 @@
 """Move plans between datasets for pretraining and finetuning — a copy of
 fast_nnunet_tpu/planning/plans_transfer.py: the target dataset reuses the
 source's architecture, patch and spacing so that weights transfer; the
-intensity statistics and data identifiers come from the target."""
+intensity statistics and data identifiers come from the target, and so
+does the image reader/writer (from the target's dataset.json), as in the
+reference's move_plans_between_datasets: the JAX package keeps the
+source's, so plans moved onto a dataset of another file format read it
+with the wrong reader."""
 import argparse
 from copy import deepcopy
 
@@ -35,6 +39,12 @@ def move_plans_between_datasets(source_dataset_name_or_id,
     # dataset-specific intensity statistics must come from the target
     plans["foreground_intensity_properties_per_channel"] = \
         target_fp["foreground_intensity_properties_per_channel"]
+    if "image_reader_writer" in plans:
+        from ..imageio.registry import \
+            determine_reader_writer_from_dataset_json
+        plans["image_reader_writer"] = \
+            determine_reader_writer_from_dataset_json(
+                target_dataset_json).__name__
     # data identifiers must be regenerated so preprocessed folders don't collide
     for cfg_name, cfg in plans["configurations"].items():
         if "data_identifier" in cfg:

@@ -5,11 +5,15 @@ resampling so the nonzero mask still aligns with the image. With a
 segmentation the foreground locations for the patch sampler are collected
 as there. ``run`` preprocesses a whole raw dataset into the ``.npy`` case
 store (``training/dataset.NpyCaseDataset``), in a spawned process pool when
-``num_processes`` > 1; the ``.fnnz`` store is not ported (ROADMAP.md §1
-item 3)."""
+``num_processes`` > 1, or into the chunked-zstd ``.fnnz`` store
+(``storage="fnnz"``, ``FNNT_STORE=fnnz``; ``training/zstd_store.py``, bricks
+sized from the configuration's patch). ``run`` also copies the raw
+dataset.json next to the plans, as the reference's preprocessing does (the
+JAX package copies it only when planning)."""
 import math
 import multiprocessing
 import os
+import shutil
 from concurrent.futures import ProcessPoolExecutor, as_completed
 from typing import List, Optional, Union
 
@@ -20,6 +24,7 @@ from ..ops.cropping import crop_to_nonzero
 from ..ops.normalization import get_normalization_scheme_by_class_name
 from ..ops.resampling import compute_new_shape
 from ..training.dataset import NpyCaseDataset
+from ..training.zstd_store import ZstdCaseDataset
 from ..utils.dataset_io import get_filenames_of_train_images_and_targets
 from ..utils.io import join, load_json, maybe_mkdir_p
 
@@ -104,8 +109,13 @@ class DefaultPreprocessor:
         data, seg, properties = self.run_case(
             image_files, seg_file, plans_manager, configuration_manager,
             dataset_json)
-        NpyCaseDataset.save_case(data, seg, properties,
-                                 output_filename_truncated)
+        if storage == "fnnz":
+            ZstdCaseDataset.save_case(
+                data, seg, properties, output_filename_truncated,
+                patch_size=configuration_manager.patch_size)
+        else:
+            NpyCaseDataset.save_case(data, seg, properties,
+                                     output_filename_truncated)
 
     @staticmethod
     def _sample_foreground_locations(seg: np.ndarray, classes_or_regions,
@@ -187,6 +197,10 @@ class DefaultPreprocessor:
             configuration_name)
         raw = join(get_raw_folder(), dataset_name)
         dataset_json = load_json(join(raw, "dataset.json"))
+        # as the reference's preprocess_dataset: training reads it from
+        # here, also when the plans were moved in rather than planned
+        shutil.copy(join(raw, "dataset.json"), join(preprocessed,
+                                                    "dataset.json"))
         dataset = get_filenames_of_train_images_and_targets(raw,
                                                             dataset_json)
         if storage is None:
@@ -215,11 +229,8 @@ class DefaultPreprocessor:
 
 
 def _check_storage(storage: str) -> None:
-    if storage == "fnnz":
-        raise NotImplementedError(
-            "the .fnnz (chunked zstd) case store is not ported; use the "
-            ".npy store (ROADMAP.md §1 item 3)")
-    assert storage == "npy", f"unknown storage {storage!r}"
+    if storage not in ("npy", "fnnz"):
+        raise ValueError(f"unknown storage {storage!r} (npy or fnnz)")
 
 
 def _run_case_save_worker(preproc_cls, out_trunc, images, label, plans_dict,

@@ -2,7 +2,7 @@
 counterpart of fast_nnunet_tpu/run/run_training.py on one GPU.
 
     fast_nnunet_train_torch DATASET CONFIGURATION FOLD [-tr NNUNetTrainer]
-        [-p nnUNetPlans] [-pretrained_weights ckpt.fnnx] [--c] [--val]
+        [-p nnUNetPlans] [-pretrained_weights ckpt.fnnx|ckpt.pth] [--c] [--val]
         [--val_best] [--npz] [--disable_checkpointing] [-device cuda|cpu]
 
 with ``nnUNet_raw``, ``nnUNet_preprocessed`` and ``nnUNet_results`` set.
@@ -11,7 +11,8 @@ variant of training/trainer_variants.py, in this framework's spelling or
 the reference's (``nnUNetTrainer*``); ResEnc plans (``-p
 nnUNetResEncUNetLPlans``) train the residual-encoder U-Net. Multi-GPU
 (``-num_gpus`` > 1) and multi-host training raise ``NotImplementedError``;
-so do ``.pth`` pretrained weights and building a Primus trainer's network.
+so does building a Primus trainer's network. Pretrained weights come from
+a ``.fnnx`` checkpoint or a reference ``.pth`` (``utils/torch_import.py``).
 """
 import argparse
 
@@ -88,21 +89,33 @@ def maybe_load_checkpoint(trainer: NNUNetTrainer, continue_training: bool,
     trainer.load_checkpoint(expected)
 
 
-def load_pretrained_weights(trainer: NNUNetTrainer, fname: str) -> None:
-    """Copy every tensor of a ``.fnnx`` checkpoint whose path and shape
-    match into the trainer's network before training. Reference ``.pth``
-    files are not read by the port."""
-    from ..models.unet import params_from_jax_partial
-    from ..training.checkpoint import load_checkpoint
-    if not fname.endswith((".fnnx", ".pkl")):
-        raise NotImplementedError(
-            "only .fnnx pretrained weights are read by the port (.pth "
-            "import is not ported)")
+def load_pretrained_weights(trainer: NNUNetTrainer, fname: str) -> dict:
+    """Copy every tensor of a pretrained checkpoint whose (translated) name
+    and shape match into the trainer's network before training; the
+    segmentation heads of a reference ``.pth`` are skipped, as the
+    reference's loader does. ``.fnnx`` / ``.pkl`` files are the JAX
+    package's checkpoints; anything else is read as a torch ``.pth``.
+    Returns the ``.pth`` import report (``{}`` for a ``.fnnx``)."""
     if not trainer.was_initialized:
         trainer.initialize()
-    n_loaded, n_total = params_from_jax_partial(
-        trainer.network, load_checkpoint(fname)["network_weights"])
-    print(f"Pretrained weights: {n_loaded}/{n_total} tensors matched")
+    if fname.endswith((".fnnx", ".pkl")):
+        from ..models.unet import params_from_jax_partial
+        from ..training.checkpoint import load_checkpoint
+        n_loaded, n_total = params_from_jax_partial(
+            trainer.network, load_checkpoint(fname)["network_weights"])
+        print(f"Pretrained weights: {n_loaded}/{n_total} tensors matched")
+        return {}
+    from ..utils.torch_import import (import_torch_weights,
+                                      load_torch_network_weights)
+    _, report = import_torch_weights(
+        trainer.network, load_torch_network_weights(fname),
+        skip_seg_layers=True)
+    print(f"Pretrained torch weights: {len(report['converted'])} converted, "
+          f"{len(report['skipped_seg'])} seg layers skipped, "
+          f"{len(report['unmatched'])} unmatched, "
+          f"{len(report['shape_mismatch'])} shape mismatches, "
+          f"{len(report['missing_in_template'])} not in the network")
+    return report
 
 
 def run_training(dataset_name_or_id, configuration: str, fold,

@@ -17,7 +17,9 @@ reads what the other writes, momentum included.
 Unpickling runs code, so the reader admits only numpy's array and dtype
 reconstructors: any other global (an ``ml_dtypes`` dtype, an optax object,
 anything else) raises ``pickle.UnpicklingError`` before it is imported.
-Orbax directory checkpoints are neither read nor written.
+Orbax directory checkpoints are neither read nor written: their arrays
+live in tensorstore's OCDBT store, out of reach of numpy and the standard
+library.
 """
 import os
 import pickle
@@ -52,8 +54,11 @@ def load_checkpoint(fname: str) -> dict:
     ``init_args``, ``trainer_name``, ...)."""
     if os.path.isdir(fname):
         raise NotImplementedError(
-            f"{fname} is an orbax directory checkpoint; the port reads only "
-            "pickle-format .fnnx files")
+            f"{fname} is an orbax directory checkpoint (FNN_CKPT_BACKEND="
+            "orbax): its arrays sit in tensorstore's OCDBT key-value store "
+            "(state/manifest.ocdbt, state/ocdbt.process_0/d/*) as zarr3 "
+            "chunks, which numpy and the standard library cannot read; "
+            "re-save it with the JAX package's pickle backend (.fnnx)")
     with open(fname, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
 

@@ -10,21 +10,25 @@ it as seg channel 1, so it shares the patch's crop and the spatial
 transforms. With ``pin_memory=True`` the worker
 threads hand over page-locked tensors, so the trainer's host-to-device copy
 runs with ``non_blocking=True``. A worker's exception is re-raised by
-``next()`` in the training loop.
+``next()`` in the training loop. Cases come from either store: a ``.npy``
+memmap or a ``.fnnz`` ``BrickReader``, which ``crop_and_pad_nd`` slices, so
+a patch decompresses only the bricks it touches.
 """
 import os
 import queue
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 
 from ..ops.pad import crop_and_pad_nd
 from .dataset import NpyCaseDataset
+from .zstd_store import ZstdCaseDataset
 
 
 class PatchSampler:
-    def __init__(self, dataset: NpyCaseDataset, batch_size: int,
+    def __init__(self, dataset: Union[NpyCaseDataset, ZstdCaseDataset],
+                 batch_size: int,
                  initial_patch_size: Sequence[int], final_patch_size: Sequence[int],
                  oversample_foreground_percent: float = 0.33,
                  transform: Optional[Callable] = None,

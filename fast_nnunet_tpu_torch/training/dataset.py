@@ -1,10 +1,11 @@
 """Preprocessed case store — the ``.npy`` store of
 fast_nnunet_tpu/training/dataset.py, copied: one memmap-able ``{id}.npy``
 (data, float32 (C, X, Y, Z)), one ``{id}_seg.npy`` (int8/int16 (1, X, Y, Z))
-and one ``{id}.pkl`` (properties incl. ``class_locations``) per case. The
-chunked-zstd ``.fnnz`` store and the reference's blosc2 ``.b2nd`` store are
-not ported: :func:`infer_dataset_class` raises ``NotImplementedError`` for a
-folder that holds them."""
+and one ``{id}.pkl`` (properties incl. ``class_locations``) per case.
+:func:`infer_dataset_class` also finds the chunked-zstd ``.fnnz`` store
+(``training/zstd_store.py``); a folder of the reference's blosc2 ``.b2nd``
+files raises with the converter's name (``run/convert_b2nd.py``), as the
+JAX package has no ``.b2nd`` dataset class either."""
 import os
 from typing import List, Optional, Tuple
 
@@ -65,15 +66,19 @@ class NpyCaseDataset:
 
 
 def infer_dataset_class(folder: str):
-    """The store class for the files in ``folder``: ``.npy`` is ported; a
-    ``.fnnz`` (chunked zstd) or ``.b2nd`` (blosc2) store raises."""
+    """The store class for the files in ``folder``: ``.fnnz`` files select
+    :class:`~.zstd_store.ZstdCaseDataset`, else the ``.npy`` store; a
+    ``.b2nd`` (blosc2) folder raises ``ValueError``."""
     try:
         names = os.listdir(folder)
     except OSError:
         names = []
-    for ext in (".fnnz", ".b2nd"):
-        if any(n.endswith(ext) for n in names):
-            raise NotImplementedError(
-                f"the {ext} case store is not ported; convert the dataset "
-                "to the .npy store")
+    if any(n.endswith(".fnnz") for n in names):
+        from .zstd_store import ZstdCaseDataset
+        return ZstdCaseDataset
+    if any(n.endswith(".b2nd") for n in names):
+        raise ValueError(
+            f"{folder} holds the reference's blosc2 .b2nd store; convert it "
+            "with fast_nnunet_convert_b2nd_torch -i <folder> -o <folder> "
+            "[--fnnz]")
     return NpyCaseDataset

@@ -107,8 +107,8 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
                 self.is_cascaded:
             raise NotImplementedError(
                 f"distillation of the {configuration!r} configuration is not "
-                "ported: 2d and cascade distillation wait (ROADMAP.md §1 "
-                "item 5)")
+                "ported: it waits in ROADMAP.md §1's queue as '2d and "
+                "cascade distillation'")
         self.teacher_model_folder = teacher_model_folder
         self.teacher_fold = list(teacher_fold) if isinstance(
             teacher_fold, (list, tuple)) else [teacher_fold]

@@ -11,8 +11,8 @@ atol 3e-4; and the 2d + 3d_fullres ensemble that find-best proposes runs as
 written: both predict with ``--save_probabilities`` and
 ``fast_nnunet_ensemble_torch`` merges the two folders as they are. The 2d
 plan's pseudo-3D sampler and augmenter give the JAX package's batches bit
-for bit; distillation of a 2d plan raises ``NotImplementedError`` (it waits,
-ROADMAP.md §1 item 5)."""
+for bit; distillation of a 2d plan raises ``NotImplementedError`` (it waits in
+ROADMAP.md §1's queue as "2d and cascade distillation")."""
 import os
 import shutil
 

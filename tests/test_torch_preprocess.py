@@ -3,7 +3,7 @@ the same raw datasets (numpy only, no card): dataset_fingerprint.json and
 nnUNetPlans.json byte-equal, every preprocessed ``.npy`` bit-equal (dtype
 and shape too), every pickled properties dict equal (``class_locations``
 included), with 1 and 2 worker processes. Also verify_dataset_integrity's
-failures, the skipped configuration, the unported ``.fnnz`` store and the
+failures, the skipped configuration, the ``.fnnz`` store and the
 ``modify_seg_fn`` hook."""
 import os
 import pickle
@@ -248,14 +248,34 @@ def test_verify_dataset_integrity_fails_like_jax(raw_ds, how):
 
 
 def test_fnnz_store_raises(raw_ds, monkeypatch):
+    """``-store fnnz`` and ``FNNT_STORE=fnnz`` write the chunked-zstd store
+    (its arrays those of the .npy store); an unknown store raises."""
     from fast_nnunet_tpu_torch.run.plan_and_preprocess import (
         plan_and_preprocess_entry, preprocess_entry)
+    from fast_nnunet_tpu_torch.training.dataset import NpyCaseDataset
+    from fast_nnunet_tpu_torch.training.zstd_store import ZstdCaseDataset
     plan_and_preprocess_entry(["-d", "995", "-npfp", "1", "--no_pp"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        preprocess_entry(["-d", "995", "-c", "3d_fullres", "-np", "1",
-                          "-store", "fnnz"])
+    out = raw_ds.pre(DS, "nnUNetPlans_3d_fullres")
+    preprocess_entry(["-d", "995", "-c", "3d_fullres", "-np", "1"])
+    npy = NpyCaseDataset(out)
+    want = {k: npy.load_case(k, mmap=False)[:2] for k in npy.keys()}
+    for f in os.listdir(out):
+        os.remove(os.path.join(out, f))
+    preprocess_entry(["-d", "995", "-c", "3d_fullres", "-np", "1",
+                      "-store", "fnnz"])
+    names = sorted(os.listdir(out))
+    assert sum(n.endswith(".fnnz") for n in names) == 6 and \
+        not any(n.endswith(".npy") for n in names)
     monkeypatch.setenv("FNNT_STORE", "fnnz")
-    with pytest.raises(NotImplementedError, match="fnnz"):
+    preprocess_entry(["-d", "995", "-c", "3d_fullres", "-np", "2"])
+    assert sorted(os.listdir(out)) == names
+    fnnz = ZstdCaseDataset(out)
+    assert fnnz.keys() == sorted(want)
+    for k, (data, seg) in want.items():
+        d, s, _ = fnnz.load_case(k, mmap=False)
+        assert d.tobytes() == data.tobytes() and s.tobytes() == seg.tobytes()
+    monkeypatch.setenv("FNNT_STORE", "blosc2")
+    with pytest.raises(ValueError, match="blosc2"):
         preprocess_entry(["-d", "995", "-c", "3d_fullres", "-np", "1"])
 
 

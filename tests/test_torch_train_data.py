@@ -122,9 +122,12 @@ def test_dataset_store_round_trip(store):
     np.testing.assert_array_equal(s, js)
     assert s.dtype == np.int8 and isinstance(d, np.memmap)
     assert pds.infer_dataset_class(store) is pds.NpyCaseDataset
-    open(os.path.join(store, "case_009.fnnz"), "wb").close()
-    with pytest.raises(NotImplementedError):
+    open(os.path.join(store, "case_009.b2nd"), "wb").close()
+    with pytest.raises(ValueError, match="convert_b2nd"):
         pds.infer_dataset_class(store)
+    open(os.path.join(store, "case_009.fnnz"), "wb").close()
+    assert pds.infer_dataset_class(store).__name__ == "ZstdCaseDataset"
+    assert jds.infer_dataset_class(store).__name__ == "ZstdCaseDataset"
 
 
 def test_async_iterator_surfaces_worker_errors(store):

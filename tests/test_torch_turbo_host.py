@@ -257,3 +257,62 @@ def test_float_input_takes_the_device_route(nets):
         got, _pipe(teng, host_preprocess=False).predict_volume(
             tree, vol, (1.0, 1.0, 1.0)))
 
+
+
+def test_host_and_device_routes_agree_at_jax_pinned_setting(jax_hostops):
+    """tests/test_hostops.py's host/device check at its own setting (f32
+    network of that arch and patch, flax-initialised from PRNGKey(0), that
+    volume and seed, ``host_revert=True`` on the device route), on the
+    port's routes: agreement > 0.995, as JAX pins for its own. JAX's two
+    routes run the same host library here and must clear it too."""
+    from fast_nnunet_tpu.models.factory import get_network_from_plans
+    from fast_nnunet_tpu.models.s2d import make_s2d_engine_net as jax_s2d
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  params_from_jax)
+    k, patch = 4, (8, 8, 16)
+    arch = {"n_stages": 3, "features_per_stage": [8, 16, 32],
+            "kernel_sizes": [[3, 3, 3]] * 3,
+            "strides": [[1, 1, 1]] + [[2, 2, 2]] * 2,
+            "n_conv_per_stage": [2, 2, 2], "n_conv_per_stage_decoder": [2, 2],
+            "nonlin": "torch.nn.LeakyReLU"}
+    net = get_network_from_plans("PlainConvUNet", arch, (), 1, k,
+                                 dtype=jnp.float32)
+    params = net.init(jax.random.PRNGKey(0), jnp.zeros((1, *patch, 1)),
+                      deep_supervision=False)
+    s2d = jax_s2d(net, arch, k, dtype=jnp.float32)
+    sp = s2d.convert_params(params)
+    tree = jax.tree_util.tree_map(np.asarray, sp)
+    cfg = dict(patch_size=(16, 8, 8), target_spacing=(1.0, 1.2, 1.1),
+               mean=40.0, std=100.0, lower_bound=-60.0, upper_bound=400.0,
+               num_classes=k)
+    rng = np.random.RandomState(7)
+    vol = np.full((30, 26, 22), -1000, np.int16)
+    vol[6:24, 5:21, 4:18] = (rng.rand(18, 16, 14) * 400 - 60).astype(np.int16)
+    spacing = (1.0, 1.0, 1.5)
+
+    tnet = make_s2d_engine_net(arch, k, 1, compute_dtype=torch.float32)
+    params_from_jax(tnet, tree)
+    teng = SlidingWindowEngine(tnet, patch, k, tile_step_size=0.5,
+                               shape_bucket=4, compute_dtype=torch.float32,
+                               sweep_acc_dtype=torch.float32, tile_batch=2,
+                               device="cpu")
+    seg_dev = TurboPipeline(teng, TurboConfig(**cfg), host_preprocess=False,
+                            host_revert=True).predict_volume(tree, vol,
+                                                             spacing)
+    pipe = TurboPipeline(teng, TurboConfig(**cfg), host_preprocess=True)
+    seg_host = pipe.predict_volume(tree, vol, spacing)
+    assert pipe.route == "streamed"
+    assert seg_host.shape == vol.shape and seg_host.dtype == np.uint8
+    agree = float((seg_dev == seg_host).mean())
+    assert agree > 0.995, f"host/device route agreement {agree}"
+
+    jeng = JaxEngine(s2d, patch, k, tile_step_size=0.5, shape_bucket=4,
+                     compute_dtype=jnp.float32, sweep_acc_dtype=jnp.float32,
+                     tile_batch=2, use_s2d_sweep=True)
+    jdev = JaxPipeline(jeng, JaxConfig(**cfg), host_preprocess=False,
+                       host_revert=True).predict_volume(sp, vol, spacing)
+    jhost = JaxPipeline(jeng, JaxConfig(**cfg),
+                        host_preprocess=True).predict_volume(sp, vol, spacing)
+    assert float((jdev == jhost).mean()) > 0.995
+    assert (seg_host == jhost).mean() >= 0.999
+    assert (seg_dev == jdev).mean() >= 0.999

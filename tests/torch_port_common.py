@@ -105,3 +105,13 @@ def jax_predictor_f32(model_folder: str, folds, num_input_channels: int,
         jp.dataset_json, jp.trainer_name, jp.allowed_mirroring_axes)
     jp.engine.compute_dtype = jnp.float32
     return jp
+
+
+def only_libzstd(monkeypatch):
+    """The port's zstd codec as on a host without the zstandard package
+    (the card's machine): the system libzstd through ctypes."""
+    from fast_nnunet_tpu_torch.utils import zstd
+    real = zstd._load
+    monkeypatch.setattr(zstd, "_load", lambda name: None
+                        if name == "zstandard" else real(name))
+    assert zstd.backend() == "libzstd"
