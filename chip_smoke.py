@@ -131,14 +131,25 @@ the card. Run from the repository root:
    the gate's count (the 2D networks' first 4-D calls), every (shape, dtype)
    A takes in one step checked and timed into A's ``train_shapes``; the
    cascade network takes 1 + 60 input channels;
-   ``fast_nnunet_predict_torch -c 2d --disable_tta``, ``-c 3d_lowres -f
-   all`` and ``-c 3d_cascade_fullres -prev_stage_predictions <lowres
-   output>`` on imagesTs (sliding window and export seconds apart; each
+   ``fast_nnunet_predict_torch -c 2d``, ``-c 3d_lowres -f all`` and ``-c
+   3d_cascade_fullres -prev_stage_predictions <lowres output>``, each
+   ``--disable_tta``, on imagesTs (sliding window and export seconds apart; each
    mask the image's shape and spacing, labels in 0..60), each evaluated
    by ``fast_nnunet_evaluate_simple_torch`` (finite
    Dice); a narrow 2D PlainConvUNet, a narrow 2D ResidualEncoderUNet and a
    narrow cascade step with one-hot input, cuda vs cpu as in 10. One
-   ``{"cascade": ...}`` line.
+   ``{"cascade": ...}`` line. Then the distillation of both: the 3d_lowres
+   deposits copied to the distillation trainer's lowres folder (the
+   reference's ``predicted_next_stage`` convention), ``fast_nnunet_distill_
+   torch -d 990 -c 2d`` and ``-c 3d_cascade_fullres``, each ``-t <its
+   NNUNetTrainer model folder> -tf 0 -r 2 -a 0.3 -temp 3.0`` for
+   DISTILL_ITERS iterations and the final validation: seconds per
+   iteration, peak memory, finite losses, kernel A launches per step
+   against the gate's count (the 2D student and teacher at 4-D, the
+   cascade student and teacher on 1 + 60 channels), A's calls of one step
+   checked and timed into A's ``train_shapes``; each student predicts the
+   test case (``-tr NNUNetDistillationTrainer --disable_tta``, the cascade
+   one from the 3d_lowres predictions).
 14. Export and the fast-inference module (``fast_inference:``): the
    bone_turbo r = 2 student (features 16..160, 61 classes, seeded random
    weights) as a ``NNUNetDistillationTrainer`` fold-0 checkpoint with its
@@ -202,6 +213,21 @@ the card. Run from the repository root:
    (voxels and spacing equal) and through ``DicomIO`` and
    ``predict_single_npy_array``: its mask equal to the ``.mha`` one. One
    ``{"formats": ...}`` line.
+17. The Primus transformer (``primus:``), in phase 11's root after phase
+   16: ``fast_nnunet_train_torch 988 3d_fullres 0 -tr
+   nnUNet_Primus_M_Trainer`` at full width (embed 864, depth 16, 12 heads,
+   8^3 tokens: 2880 tokens at the planned 160x96x96 patch, batch 2, 61
+   classes, bf16 compute / f32 parameters, AdamW), one epoch of 10
+   iterations, 2 validation iterations and the final validation: fed and
+   cached seconds per iteration, CUDA-event phases, peak memory, FLOPs per
+   step from the shapes and ``mfu``, kernel A launches per step (0: no
+   InstanceNorm), a finite loss falling over 10 cached steps; a NaN batch
+   through the NaN-guarded step leaves the parameters, the AdamW moments
+   and the schedule count bit-equal; ``fast_nnunet_predict_torch -tr
+   nnUNet_Primus_M_Trainer`` on the test case through a rebuilt
+   ``Primus``; a small Primus cuda vs cpu in fp32 (logits 1e-4 of their
+   scale, one AdamW step's parameters 1e-5). One ``{"primus": ...}``
+   line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -1997,7 +2023,7 @@ def host_seconds(targets):
 def pipeline_path(torch, dev, a_row, iters=10, warm=3):
     """Phase 11 (``pipeline:``): nnU-Net's workflow from a raw dataset
     through the port's entry points, in process (docstring step 11); then
-    phases 12 and 16 in the same temporary root."""
+    phases 12, 16 and 17 in the same temporary root."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="fnn_chip_smoke_pipeline_")
@@ -2011,6 +2037,7 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
         fed_npy = _pipeline(torch, dev, a_row, root, iters, warm)
         resenc_path(torch, dev, a_row)
         formats_path(torch, dev, a_row, fed_npy)
+        primus_path(torch, dev)
     finally:
         for k, v in old.items():
             if v is None:
@@ -2215,6 +2242,283 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
         "kernel_a_shapes": [f"{shape} {dtype}" for shape, dtype in a_shapes],
         "topology": topo, "cv_fg_dice": dice[0], "test_fg_dice": test_dice}}))
     return fed
+
+
+# ------------------------------------------------------------------ primus
+PRIMUS_TRAINER = "nnUNet_Primus_M_Trainer"
+PRIMUS_M = {"embed_dim": 864, "depth": 16, "num_heads": 12}
+
+
+def primus_flops(net, batch):
+    """FLOPs of one forward of a ``Primus`` on ``batch`` patches, from its
+    shapes: the patch embedding, per block the qkv, proj and SwiGLU
+    linears and the QK^T and AV products, the transposed convs and the seg
+    head (2 per multiply-add)."""
+    T, E = math.prod(net.grid), net.embed_dim
+    hidden = net.blocks[0].mlp.w1.out_features
+    block = 2 * T * E * (3 * E + E + 3 * hidden) + 2 * 2 * T * T * E
+    f = 2 * T * net.patch_embed.weight.numel() + net.depth * block
+    vox = T
+    for up in net.ups:
+        cin, cout = up.weight.shape[:2]
+        f += 2 * vox * cin * up.weight[0, 0].numel() * cout
+        vox *= up.weight[0, 0].numel()
+    f += 2 * vox * net.seg_head.weight.numel()
+    return batch * f
+
+
+def primus_path(torch, dev, iters=10, warm=3):
+    """Phase 17 (``primus:``): the Primus M trainer on phase 11's dataset
+    at full width, its NaN watchdog, prediction through a rebuilt Primus,
+    and a small Primus cuda vs cpu (docstring step 17)."""
+    t_phase = time.perf_counter()
+    try:
+        out = _primus(torch, dev, iters, warm)
+    finally:
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"primus: phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"primus": out}))
+
+
+def _primus(torch, dev, iters, warm):
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.inference import predictor
+    from fast_nnunet_tpu_torch.inference.engine import PhaseTimer
+    from fast_nnunet_tpu_torch.models.primus import Primus
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.run.run_training import run_training_entry
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_adamw
+    from fast_nnunet_tpu_torch.training.schedules import linear_warmup_poly
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+    from fast_nnunet_tpu_torch.utils.io import join
+
+    ds, n = PIPELINE_DS, PIPELINE_N_TRAIN
+    out = {}
+    # ---- fast_nnunet_train_torch 988 3d_fullres 0 -tr nnUNet_Primus_M_Trainer
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    timer = PhaseTimer()
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm, timer)
+    torch.cuda.reset_peak_memory_stats()
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run_training_entry([str(PIPELINE_DS_ID), "3d_fullres", "0", "-tr",
+                            PRIMUS_TRAINER])
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+    train_wall = time.perf_counter() - t0
+    run_launches = ka.spatial_sum_sumsq.launches
+    trainer = cap["trainer"]
+    net = trainer.network
+    cm = trainer.configuration_manager
+    st = cap["stamps"]
+    fed = (st[-1] - st[warm]) / (iters - warm)
+    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    tl = trainer.logger.logging
+    check(isinstance(net, Primus), f"the trainer built a {type(net)}")
+    dims = {"embed_dim": net.embed_dim, "depth": net.depth,
+            "num_heads": net.num_heads}
+    check(dims == PRIMUS_M and net.patch_embed_size == (8, 8, 8)
+          and net.patch_size == tuple(PIPELINE_3D_FULLRES["patch_size"])
+          and cm.batch_size == 2 and net.num_classes == TRAIN_K,
+          f"Primus M at {dims}, tokens {net.patch_embed_size}, patch "
+          f"{net.patch_size}, batch {cm.batch_size}, {net.num_classes} "
+          "classes")
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"primus: {PRIMUS_TRAINER}: embed {net.embed_dim}, depth "
+          f"{net.depth}, {net.num_heads} heads, tokens "
+          f"{net.patch_embed_size} -> grid {net.grid} "
+          f"({math.prod(net.grid)} tokens), patch {list(net.patch_size)}, "
+          f"batch {cm.batch_size}, {TRAIN_K} classes, {n_params} "
+          f"parameters, bf16 compute / f32 parameters; "
+          f"fast_nnunet_train_torch ({iters} iterations, 2 validation "
+          f"iterations, final validation) {train_wall:.3f} s; fed seconds "
+          f"per iteration {fed:.4f} (iterations {warm}-{iters - 1}); peak "
+          f"device memory {cap['peak_bytes'] / 2**30:.2f} GiB over the "
+          f"training iterations")
+    print("primus: phase ms per fed iteration (CUDA events) " + json.dumps(
+        {k: round(v, 3) for k, v in phases.items()}))
+    print(f"primus: kernel A launches per train step {cap['step_launches']} "
+          f"(Primus has no InstanceNorm); {run_launches} in the whole run; "
+          f"epoch train loss {tl['train_losses'][0]:.4f}, val loss "
+          f"{tl['val_losses'][0]:.4f}")
+    check(all(k == 0 for k in cap["step_launches"]) and run_launches == 0,
+          f"Primus launched kernel A: {cap['step_launches']}")
+    check(np.isfinite(tl["train_losses"][0]) and
+          np.isfinite(tl["val_losses"][0]),
+          f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
+    out.update(train_wall_s=train_wall, fed_s_per_iter=fed,
+               phases_ms=phases, peak_gib_train=cap["peak_bytes"] / 2**30,
+               kernel_a_launches_per_step=cap["step_launches"],
+               parameters=n_params, tokens=math.prod(net.grid))
+
+    # ---- cached: one device batch through the NaN-guarded step, lr 3e-4
+    batch = trainer.dataloader_train.sampler.generate_batch(
+        np.random.RandomState(0))
+    data, targets = trainer.batch_to_device(batch)
+    opt = nnunet_adamw(net.parameters(),
+                       linear_warmup_poly(trainer.initial_lr, 1000, 1),
+                       weight_decay=trainer.weight_decay, b1=0.9, b2=0.98,
+                       grad_clip=1.0)
+    step = make_train_step(net, opt, skip_nonfinite=True,
+                           **trainer._step_kwargs())
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(10):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(data, targets))
+    torch.cuda.synchronize()
+    cached = (time.perf_counter() - t0) / (10 - warm)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite cached losses {losses}")
+    check(losses[-1] < losses[0], f"cached-batch loss did not fall: {losses}")
+    flops = 3 * primus_flops(net, cm.batch_size)
+    mfu = flops / cached / BF16_TENSOR_OPS_PER_S
+    mfu_fed = flops / fed / BF16_TENSOR_OPS_PER_S
+    print(f"primus: warm seconds per iteration fed {fed:.4f}, cached "
+          f"{cached:.4f} (one device batch, {10 - warm} steps); peak device "
+          f"memory {peak / 2**30:.2f} GiB cached (f32 scores of "
+          f"({cm.batch_size}, {net.num_heads}, {math.prod(net.grid)}, "
+          f"{math.prod(net.grid)}) per layer)")
+    print(f"primus: FLOPs per step {flops:.4e} (3 x forward: linears, "
+          f"QK^T, AV, patch embedding, transposed convs, seg head); mfu "
+          f"{mfu:.4f} cached, {mfu_fed:.4f} fed (of 989 TFLOP/s dense bf16)")
+    print(f"primus: cached-batch losses {[round(v, 4) for v in losses]}")
+
+    # ---- the NaN watchdog on the card: nothing moves
+    def state():
+        sd = opt.inner.state
+        return ([p.detach().clone() for p in net.parameters()],
+                [sd[p][k].clone() for p in net.parameters()
+                 for k in ("exp_avg", "exp_avg_sq", "step")], opt.count)
+    before = state()
+    nan_loss = step(torch.full_like(data, float("nan")), targets)
+    after = state()
+    same = all(torch.equal(a, b) for a, b in zip(before[0] + before[1],
+                                                 after[0] + after[1]))
+    print(f"primus: NaN batch: loss {float(nan_loss)}, step skipped "
+          f"{step.skipped} time(s); parameters, AdamW moments and steps "
+          f"bit-equal before and after: {same}; schedule count "
+          f"{before[2]} -> {after[2]}")
+    check(not np.isfinite(float(nan_loss)) and step.skipped == 1 and same
+          and before[2] == after[2], "the NaN watchdog let the step through")
+    out.update(cached_s_per_iter=cached, peak_gib_cached=peak / 2**30,
+               flops_per_step=flops, mfu=mfu, mfu_fed=mfu_fed,
+               cached_losses=losses, nan_step_skipped=same)
+    del opt, step, data, targets, before, after
+    trainer.network = None
+    del trainer, net
+    cap.clear()
+    torch.cuda.empty_cache()
+
+    # ---- fast_nnunet_predict_torch -tr nnUNet_Primus_M_Trainer
+    raw = join(os.environ["nnUNet_raw"], ds)
+    o = join(os.environ["nnUNet_results"], "imagesTs_primus")
+    held = []
+    real_init = predictor.NNUNetPredictor.manual_initialization
+
+    def init_and_look(self, network, *a, **kw):
+        held.append(type(network).__name__)
+        return real_init(self, network, *a, **kw)
+
+    predictor.NNUNetPredictor.manual_initialization = init_and_look
+    t0 = time.perf_counter()
+    try:
+        predict_entry_point(["-i", join(raw, "imagesTs"), "-o", o, "-d", ds,
+                             "-c", "3d_fullres", "-f", "0", "-tr",
+                             PRIMUS_TRAINER])
+    finally:
+        predictor.NNUNetPredictor.manual_initialization = real_init
+    predict_s = time.perf_counter() - t0
+    case = f"case_{n:03d}"
+    seg = NiftiIO().read_seg(join(o, case + ".nii.gz"))[0][0]
+    labels = np.unique(seg)
+    print(f"primus: fast_nnunet_predict_torch -tr {PRIMUS_TRAINER} (mirror "
+          f"TTA) {predict_s:.3f} s on the host clock: the predictor held a "
+          f"{held}; mask {seg.shape}, {len(labels)} labels "
+          f"{labels[:8].tolist()}...")
+    check(held == ["Primus"], f"the predictor held {held}")
+    check(seg.shape == TRAIN_CASE and labels.min() >= 0
+          and labels.max() < TRAIN_K, f"Primus mask {seg.shape} {labels}")
+    out.update(predict_s=predict_s, predict_labels=len(labels))
+
+    # ---- a small Primus, fp32 with TF32 off: cuda vs cpu
+    out["small"] = small_primus(torch, dev)
+    return out
+
+
+def small_primus(torch, dev):
+    """A small Primus (embed 96, depth 2, 3 heads, 8^3 tokens, patch 32^3,
+    4 classes) in float32 with TF32 off, cuda vs cpu from the same seeded
+    weights: logits within 1e-4 of their scale, and after one AdamW step
+    (lr 3e-4, the trainer's b2 0.98, clip 1, NaN-guarded) the parameters
+    within 1e-5, except where a gradient element is within float noise of
+    zero (|g| < 1e-7 = 10 eps: Adam moves it by up to lr in a direction the
+    noise gives; at most 5% of the elements), where the bound is 2 lr."""
+    import copy
+    import numpy as np
+    from fast_nnunet_tpu_torch.models.primus import Primus, init_primus_
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_adamw
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net_c = init_primus_(Primus(1, 96, (8, 8, 8), 4, 2, 3, (32, 32, 32),
+                                    compute_dtype=torch.float32,
+                                    trainable=True), 11)
+        net_d = copy.deepcopy(net_c).to(dev)
+        rng = np.random.RandomState(12)
+        lab = rng.randint(0, 4, (2, 32, 32, 32))
+        x = torch.from_numpy((rng.randn(2, 1, 32, 32, 32) + lab[:, None]
+                              ).astype(np.float32))
+        t = torch.from_numpy(lab)
+        with torch.no_grad():
+            lc, ld = net_c(x), net_d(x.to(dev)).cpu()
+        logit_err = float((lc - ld).abs().max() / lc.abs().max())
+        lr = 3e-4
+        res = []
+        for net, d in ((net_c, torch.device("cpu")), (net_d, dev)):
+            opt = nnunet_adamw(net.parameters(), lr, b2=0.98, grad_clip=1.0)
+            loss = make_train_step(net, opt, skip_nonfinite=True)(
+                x.to(d), (t.to(d),))
+            res.append((float(loss), opt))
+        (loss_c, opt_c), (loss_d, _) = res
+        worst, n_noisy = -math.inf, 0
+        for pc, pd in zip(net_c.parameters(), net_d.parameters()):
+            g = opt_c.inner.state[pc]["exp_avg"] / 0.1
+            noisy = g.abs() < 1e-7
+            n_noisy += int(noisy.sum())
+            d = (pc.detach() - pd.detach().cpu()).abs()
+            worst = max(worst, float((d - (noisy * 2 * lr + 1e-5)).max()))
+        n = sum(p.numel() for p in net_c.parameters())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+    print(f"small: fp32 Primus (embed 96, depth 2, 3 heads, 32^3) cuda vs "
+          f"cpu: logits max diff {logit_err:.3e} of their scale (bound "
+          f"1e-4); one AdamW step: losses {loss_d:.6f} vs {loss_c:.6f}, "
+          f"parameters within their bound with {-worst:.3e} to spare "
+          f"(1e-5; 2 lr on {n_noisy} of {n} elements whose gradient is "
+          f"within float noise of zero)")
+    check(logit_err <= 1e-4, f"small Primus logits cuda vs cpu {logit_err}")
+    check(worst <= 0 and n_noisy <= 0.05 * n,
+          f"small Primus AdamW step cuda vs cpu: excess {worst}, "
+          f"{n_noisy} noisy elements")
+    return {"logit_rel": logit_err, "param_excess": worst,
+            "noisy_elements": n_noisy, "loss_cuda": loss_d,
+            "loss_cpu": loss_c}
 
 
 # ------------------------------------------------------------------ formats
@@ -2943,7 +3247,124 @@ def _train_configuration(torch, dev, a_row, configuration, fold, iters,
     return out
 
 
+DISTILL_ITERS = 6
+
+
+def _distill_configuration(torch, dev, a_row, cfg, outs, iters, warm):
+    """``fast_nnunet_distill_torch -d 990 -c CFG -t <the NNUNetTrainer
+    model folder of CFG> -tf 0 -r 2 -a 0.3 -temp 3.0`` (one epoch of
+    ``iters`` iterations, 1 validation iteration, the final validation),
+    kernel A's launches per distillation step against the gate's count
+    (student, recomputed student norms, the teacher) and A's calls of one
+    step into A's ``train_shapes``; then ``fast_nnunet_predict_torch -c CFG
+    -tr NNUNetDistillationTrainer --disable_tta`` on imagesTs (the cascade
+    student with the 3d_lowres predictions of ``outs``)."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.run.distillation_train import \
+        distillation_train_entry
+    from fast_nnunet_tpu_torch.run.predict import predict_entry_point
+    from fast_nnunet_tpu_torch.training.distill import \
+        NNUNetDistillationTrainer
+    from fast_nnunet_tpu_torch.utils.io import join
+
+    ds, n = CASCADE_DS, PIPELINE_N_TRAIN
+    results = join(os.environ["nnUNet_results"], ds)
+    teacher = join(results, f"NNUNetTrainer__nnUNetPlans__{cfg}")
+    os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
+                      FNNT_VAL_ITERS_PER_EPOCH="1", FNNT_NUM_EPOCHS="1")
+    cap = {}
+    orig = stamp_iterations(NNUNetDistillationTrainer, "distill_step", cap,
+                            warm)
+    torch.cuda.reset_peak_memory_stats()
+    ka.spatial_sum_sumsq.launches = 0
+    t0 = time.perf_counter()
+    try:
+        distillation_train_entry(["-d", str(CASCADE_DS_ID), "-c", cfg, "-f",
+                                  "0", "-t", teacher, "-tf", "0", "-r", "2",
+                                  "-a", "0.3", "-temp", "3.0"])
+    finally:
+        NNUNetDistillationTrainer.run_train_iterations = orig
+    wall = time.perf_counter() - t0
+    trainer = cap["trainer"]
+    st = cap["stamps"]
+    per_iter = (st[-1] - st[warm]) / (iters - warm)
+    cm = trainer.configuration_manager
+    x1 = torch.zeros((1, trainer.num_input_channels, *cm.patch_size),
+                     device=dev)
+    s_gate, s_remat = gated_norms(torch, trainer.network, x1)
+    t_gate, _ = gated_norms(torch, trainer.teachers[0], x1)
+    del x1
+    predicted = s_gate + s_remat + len(trainer.teachers) * t_gate
+    lg = trainer.logger.logging
+    seg_l, dist_l = lg["train_seg_losses"][0], lg["train_distill_losses"][0]
+    first = trainer.network.encoder.stages["stage_0"].blocks["block_0"].conv
+    out = {"wall_s": wall, "s_per_iter": per_iter,
+           "peak_gib_train": cap["peak_bytes"] / 2**30,
+           "student_features": stage_features(trainer.network),
+           "input_channels": first.in_channels, "seg_loss": seg_l,
+           "distill_loss": dist_l,
+           "kernel_a_launches_per_step": cap["step_launches"],
+           "kernel_a_predicted_per_step": predicted}
+    print(f"cascade: distill {cfg}: student {trainer.network.dim}D features "
+          f"{out['student_features']}, {first.in_channels} input channels, "
+          f"{len(trainer.teachers)} teacher fold {trainer.teacher_fold}, "
+          f"alpha {trainer.alpha}, T {trainer.temperature}, patch "
+          f"{cm.patch_size}, batch {cm.batch_size}; "
+          f"fast_nnunet_distill_torch ({iters} iterations, 1 validation "
+          f"iteration, final validation) {wall:.3f} s; seconds per "
+          f"iteration {per_iter:.4f} (iterations {warm}-{iters - 1}); peak "
+          f"device memory {out['peak_gib_train']:.2f} GiB over the training "
+          f"iterations; epoch seg loss {seg_l:.4f}, distill loss "
+          f"{dist_l:.4f}")
+    print(f"cascade: distill {cfg} kernel A launches per step "
+          f"{cap['step_launches']} (predicted {predicted}: student {s_gate} "
+          f"+ {s_remat} recomputed, {len(trainer.teachers)} teacher x "
+          f"{t_gate})")
+    check(all(k == predicted for k in cap["step_launches"]),
+          f"distill {cfg}: kernel A launches per step "
+          f"{cap['step_launches']} != {predicted}")
+    check(predicted > 0, f"distill {cfg} launched no kernel A")
+    check(np.isfinite(seg_l) and np.isfinite(dist_l) and dist_l > 0,
+          f"distill {cfg} losses seg {seg_l} distill {dist_l}")
+    check(first.in_channels == (1 if cfg == "2d" else TRAIN_K),
+          f"distill {cfg}: the student takes {first.in_channels} channels")
+    calls, step_launches = cap["a_calls"], cap["step_launches"][1]
+    trainer.teachers = []
+    trainer.network = None
+    del trainer
+    cap.clear()
+    torch.cuda.empty_cache()
+    kernel_a_step_shapes(torch, f"distill_{cfg}", calls, step_launches,
+                         a_row)
+
+    raw = join(os.environ["nnUNet_raw"], ds)
+    o = join(os.environ["nnUNet_results"], f"imagesTs_distill_{cfg}")
+    extra = ["-prev_stage_predictions", outs["3d_lowres"]] \
+        if cfg == "3d_cascade_fullres" else []
+    t0 = time.perf_counter()
+    predict_entry_point(["-i", join(raw, "imagesTs"), "-o", o, "-d", ds,
+                         "-c", cfg, "-f", "0", "-tr",
+                         "NNUNetDistillationTrainer", "--disable_tta"]
+                        + extra)
+    out["predict_s"] = time.perf_counter() - t0
+    case = f"case_{n:03d}"
+    seg = NiftiIO().read_seg(join(o, case + ".nii.gz"))[0][0]
+    labels = np.unique(seg)
+    check(seg.shape == CASCADE_CASE and labels.min() >= 0
+          and labels.max() < TRAIN_K,
+          f"distilled {cfg} mask {seg.shape} labels {labels[:8]}")
+    out["predict_labels"] = len(labels)
+    print(f"cascade: fast_nnunet_predict_torch -c {cfg} -tr "
+          f"NNUNetDistillationTrainer --disable_tta {' '.join(extra)} "
+          f"{out['predict_s']:.3f} s: mask {seg.shape}, {len(labels)} "
+          f"labels")
+    return out
+
+
 def _cascade(torch, dev, a_row, iters, warm):
+    import shutil
     import numpy as np
     from fast_nnunet_tpu_torch.imageio.nifti import NiftiIO
     from fast_nnunet_tpu_torch.inference import predictor
@@ -3050,8 +3471,8 @@ def _cascade(torch, dev, a_row, iters, warm):
                                               case + "_0000.nii.gz")])
     outs = {}
     for cfg, extra in (("2d", ["-f", "0", "--disable_tta"]),
-                       ("3d_lowres", ["-f", "all"]),
-                       ("3d_cascade_fullres", ["-f", "0"])):
+                       ("3d_lowres", ["-f", "all", "--disable_tta"]),
+                       ("3d_cascade_fullres", ["-f", "0", "--disable_tta"])):
         o = join(os.environ["nnUNet_results"], f"imagesTs_{cfg}")
         if cfg == "3d_cascade_fullres":
             extra = extra + ["-prev_stage_predictions", outs["3d_lowres"]]
@@ -3079,13 +3500,25 @@ def _cascade(torch, dev, a_row, iters, warm):
         out[f"test_fg_dice_{cfg}"] = dice
         outs[cfg] = o
         print(f"cascade: fast_nnunet_predict_torch -c {cfg} "
-              f"{' '.join(extra[2:]) or '(mirror TTA)'} "
+              f"{' '.join(extra[2:])} "
               f"{host[f'predict_{cfg}_s']:.3f} s (sliding window "
               f"{host[f'predict_{cfg}_sliding_window_s']:.3f}, export "
               f"{host[f'predict_{cfg}_export_s']:.3f} s): mask "
               f"{seg.shape[1:]} at "
               f"{list(sprops['spacing'])} mm, {len(labels)} labels; test "
               f"foreground Dice {dice:.4f}")
+
+    # ---- fast_nnunet_distill_torch -c 2d / -c 3d_cascade_fullres, one
+    #      teacher fold each, and their students predicted
+    results = join(os.environ["nnUNet_results"], ds)
+    shutil.copytree(
+        join(results, "NNUNetTrainer__nnUNetPlans__3d_lowres",
+             "predicted_next_stage"),
+        join(results, "NNUNetDistillationTrainer__nnUNetPlans__3d_lowres",
+             "predicted_next_stage"))
+    for cfg in ("2d", "3d_cascade_fullres"):
+        out[f"distill_{cfg}"] = _distill_configuration(
+            torch, dev, a_row, cfg, outs, DISTILL_ITERS, 2)
 
     # ---- small: 2D and cascade steps cuda vs cpu
     tf32 = torch.backends.cuda.matmul.allow_tf32

@@ -14,7 +14,9 @@ device of its constants, so the artifact serves on that device only.
 
 The network is rebuilt as the port's predictor builds it
 (``inference.predictor.network_for_checkpoint``: students, BatchNorm with
-its running averages in evaluation mode). Validation reloads the artifact
+its running averages in evaluation mode); a Primus checkpoint raises
+``NotImplementedError``, as the JAX exporter cannot export one either (it
+builds the plans' CNN and fails to restore). Validation reloads the artifact
 and holds it against the native forward: max relative deviation <= 1e-2,
 else it raises.
 """
@@ -83,6 +85,11 @@ def export_model_folder_to_artifact(
     ckpt = load_checkpoint(join(model_training_output_dir, f"fold_{fold}",
                                 checkpoint_name))
     init_args = ckpt.get("init_args") or {}
+    if init_args.get("primus_arch"):
+        raise NotImplementedError(
+            "a Primus checkpoint (init_args carry primus_arch) is not "
+            "exported: the JAX exporter this one follows builds the plans' "
+            "CNN for every checkpoint, so it cannot restore a Primus either")
     configuration_name = init_args.get("configuration", "3d_fullres")
     compute_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     network, cfg = network_for_checkpoint(plans_manager, dataset_json, ckpt,

@@ -18,7 +18,9 @@ stage's segmentation of each case (``folder_with_segs_from_prev_stage``,
 ``{ident}{file_ending}``) rides the seg path of the preprocessor, so it
 shares the image's crop, skips intensity normalisation and is resampled
 label-safely, and enters the network as one one-hot channel per foreground
-label. Primus checkpoints raise ``NotImplementedError``.
+label. A checkpoint whose ``init_args`` carry ``primus_arch`` (a Primus
+trainer's) is rebuilt as that ``Primus`` at the plans' patch and predicts
+through the same sliding window.
 """
 import os
 import queue
@@ -33,6 +35,7 @@ from ..core.labels import (convert_labelmap_to_one_hot,
 from ..core.plans import PlansManager
 from ..device import resolve_device
 from ..models.factory import build_network_from_arch_dict, with_batch_norm
+from ..models.primus import Primus
 from ..models.students import build_lite_student
 from ..preprocessing.preprocessor import DefaultPreprocessor
 from ..training.checkpoint import load_checkpoint
@@ -49,8 +52,10 @@ def network_for_checkpoint(plans_manager: PlansManager, dataset_json: dict,
                            checkpoint: dict, compute_dtype: torch.dtype):
     """(network, configuration manager) of a checkpoint, the network rebuilt
     as the checkpoint's trainer built it (no weights loaded): a distilled
-    student at its reduced widths, BatchNorm where the weights carry
-    ``batch_stats``. The predictor and the exporter both build through it."""
+    student at its reduced widths, a Primus from ``primus_arch`` (drop path
+    0.2, LayerScale 0.1, the plans' patch), BatchNorm where the
+    weights carry ``batch_stats``. The predictor and the exporter both
+    build through it."""
     init_args = checkpoint.get("init_args") or {}
     trainer_name = checkpoint.get("trainer_name", "NNUNetTrainer")
     configuration_manager = plans_manager.get_configuration(
@@ -61,8 +66,6 @@ def network_for_checkpoint(plans_manager: PlansManager, dataset_json: dict,
     arch = configuration_manager.configuration["architecture"]
     if "batch_stats" in checkpoint["network_weights"]:
         arch = with_batch_norm(arch)
-    if init_args.get("primus_arch"):
-        raise NotImplementedError("Primus networks are not ported yet")
     if trainer_name and "Distillation" in trainer_name:
         network = build_lite_student(
             arch["network_class_name"], arch["arch_kwargs"],
@@ -70,6 +73,16 @@ def network_for_checkpoint(plans_manager: PlansManager, dataset_json: dict,
             init_args.get("feature_reduction_factor", 2),
             init_args.get("block_reduction_strategy", "reduce"),
             compute_dtype=compute_dtype)
+    elif init_args.get("primus_arch"):
+        pa = init_args["primus_arch"]
+        network = Primus(
+            input_channels=num_input_channels,
+            embed_dim=int(pa["embed_dim"]),
+            patch_embed_size=tuple(int(p) for p in pa["patch_embed_size"]),
+            num_classes=k, depth=int(pa["depth"]),
+            num_heads=int(pa["num_heads"]),
+            patch_size=tuple(configuration_manager.patch_size),
+            drop_path_rate=0.2, init_values=0.1, compute_dtype=compute_dtype)
     else:
         network = build_network_from_arch_dict(
             arch, num_input_channels, k, compute_dtype)

@@ -279,9 +279,12 @@ def jax_param_paths(net: nn.Module) -> List[Tuple[tuple, torch.Tensor, str]]:
     """(flax tree path, tensor, layout kind) for every parameter of
     ``net`` (collection ``params``) and every running average of its
     BatchNorms (collection ``batch_stats``), in module order; the kind is
-    "conv", "transpconv" or "vector" (see :func:`to_flax_layout`). The one
-    description of a network's tree that the loaders, the writers and the
-    initialiser read."""
+    "conv", "transpconv", "dense" or "vector" (see :func:`to_flax_layout`).
+    The one description of a network's tree that the loaders, the writers
+    and the initialiser read; a network with a tree of its own (a Primus)
+    lists it itself."""
+    if hasattr(net, "jax_param_paths"):
+        return net.jax_param_paths()
     out = []
 
     def conv(mod, path, kind="conv"):
@@ -328,12 +331,12 @@ def jax_param_paths(net: nn.Module) -> List[Tuple[tuple, torch.Tensor, str]]:
 def to_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
     """torch layout -> flax layout, in 2D and 3D: conv (O, I, *k) ->
     (*k, I, O); transposed conv (I, O, *k) -> (*k, I, O) mirrored on every
-    spatial axis (flax applies its transposed kernels mirrored); vectors
-    unchanged."""
+    spatial axis (flax applies its transposed kernels mirrored); dense (out,
+    in) -> (in, out); vectors unchanged."""
     w = np.asarray(w)
     n = w.ndim - 2
     spatial = tuple(range(2, 2 + n))
-    if kind == "conv":
+    if kind in ("conv", "dense"):
         w = np.transpose(w, spatial + (1, 0))
     elif kind == "transpconv":
         w = np.flip(np.transpose(w, spatial + (0, 1)), tuple(range(n)))
@@ -342,11 +345,12 @@ def to_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
 
 def from_flax_layout(kind: str, w: np.ndarray) -> np.ndarray:
     """The inverse of :func:`to_flax_layout`: flax (*k, I, O) -> torch conv
-    (O, I, *k) or, unmirrored, transposed conv (I, O, *k)."""
+    (O, I, *k) or, unmirrored, transposed conv (I, O, *k); dense (in, out)
+    -> (out, in)."""
     w = np.asarray(w)
     n = w.ndim - 2
     spatial = tuple(range(n))
-    if kind == "conv":
+    if kind in ("conv", "dense"):
         w = np.transpose(w, (n + 1, n) + spatial)
     elif kind == "transpconv":
         w = np.transpose(np.flip(w, spatial), (n, n + 1) + spatial)

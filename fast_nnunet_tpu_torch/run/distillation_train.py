@@ -1,7 +1,8 @@
 """Distillation training CLIs of the port — the counterparts of
 fast_nnunet_tpu/run/distillation_train.py's two entries:
 
-    fast_nnunet_distill_torch -d DATASET [-c 3d_fullres] [-f 0]
+    fast_nnunet_distill_torch -d DATASET [-c 3d_fullres|2d|3d_lowres|
+        3d_cascade_fullres] [-f 0]
         [-t TEACHER_FOLDER] [-tf 0 1 2 3 4] [-a 0.3] [-temp 3.0] [-r 2]
         [-e EPOCHS] [-c_continue] [--disable_mirroring] [--use_da5]
         [-device cuda|cpu]
@@ -14,7 +15,12 @@ defaults to the results folder of ``NNUNetTrainer__<teacher plans>__
 checkpoint). The student is built from the student plans' architecture: a
 ResEnc plans identifier (``-spl nnUNetResEncUNetLPlans``) gives a
 LiteResEncStudent, its block counts mapped by ``-bs``. ``--use_da5`` trains
-under the DA5 augmentation.
+under the DA5 augmentation. A ``2d`` student distils from the teachers'
+2d networks; a ``3d_cascade_fullres`` student reads its previous stage's
+predictions from ``NNUNetDistillationTrainer__<plans>__3d_lowres/
+predicted_next_stage/3d_cascade_fullres`` (the trainer's own name, the
+reference's convention), where a distilled 3d_lowres leaves them or a
+copy of the teachers' deposits is put.
 """
 import argparse
 from typing import Optional, Sequence

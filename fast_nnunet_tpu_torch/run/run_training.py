@@ -6,13 +6,14 @@ counterpart of fast_nnunet_tpu/run/run_training.py on one GPU.
         [--val_best] [--npz] [--disable_checkpointing] [-device cuda|cpu]
 
 with ``nnUNet_raw``, ``nnUNet_preprocessed`` and ``nnUNet_results`` set.
-Trainers: ``NNUNetTrainer``, the distillation trainers and every trainer
-variant of training/trainer_variants.py, in this framework's spelling or
-the reference's (``nnUNetTrainer*``); ResEnc plans (``-p
+Trainers: ``NNUNetTrainer``, the distillation trainers, every trainer
+variant of training/trainer_variants.py and the Primus trainers of
+training/primus_trainers.py, in this framework's spelling or the
+reference's (``nnUNetTrainer*``); ResEnc plans (``-p
 nnUNetResEncUNetLPlans``) train the residual-encoder U-Net. Multi-GPU
-(``-num_gpus`` > 1) and multi-host training raise ``NotImplementedError``;
-so does building a Primus trainer's network. Pretrained weights come from
-a ``.fnnx`` checkpoint or a reference ``.pth`` (``utils/torch_import.py``).
+(``-num_gpus`` > 1) and multi-host training raise ``NotImplementedError``.
+Pretrained weights come from a ``.fnnx`` checkpoint or a reference ``.pth``
+(``utils/torch_import.py``).
 """
 import argparse
 
@@ -23,9 +24,10 @@ from ..utils.misc import (maybe_convert_to_dataset_name,
 
 def _trainer_modules():
     from ..training import distill as _d
+    from ..training import primus_trainers as _p
     from ..training import trainer as _t
     from ..training import trainer_variants as _v
-    return _t, _d, _v
+    return _t, _d, _v, _p
 
 
 def _ported_trainer_names():

@@ -15,8 +15,13 @@ one-pass InstanceNorm, so every teacher norm at >= 4096 voxels runs kernel A
 too; they run under ``torch.no_grad()`` in evaluation mode. Teachers and
 students are either U-Net: a residual-encoder teacher (ResEnc plans)
 distils into a LiteResEncStudent, its block counts mapped by
-``block_reduction_strategy``. ``NNUNetDistillationTrainerDA5`` trains the
-student under the DA5 augmentation.
+``block_reduction_strategy``. Every configuration distils: the teachers are
+built from the teacher plans' configuration of the student's name with
+the student's input channels, so a ``2d`` student learns from 2D teachers
+(its norms on 4-D batches, kernel A at 4-D) and a ``3d_cascade_fullres``
+student and its teachers take the image plus one one-hot channel per
+foreground label of the previous stage. ``NNUNetDistillationTrainerDA5``
+trains the student under the DA5 augmentation.
 """
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -103,12 +108,6 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
                  rotate_folds_frequency: int = 50,
                  student_plans_identifier: str = "nnUNetPlans"):
         super().__init__(plans, configuration, fold, dataset_json, device)
-        if len(self.configuration_manager.patch_size) != 3 or \
-                self.is_cascaded:
-            raise NotImplementedError(
-                f"distillation of the {configuration!r} configuration is not "
-                "ported: it waits in ROADMAP.md §1's queue as '2d and "
-                "cascade distillation'")
         self.teacher_model_folder = teacher_model_folder
         self.teacher_fold = list(teacher_fold) if isinstance(
             teacher_fold, (list, tuple)) else [teacher_fold]

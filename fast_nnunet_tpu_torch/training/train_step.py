@@ -50,15 +50,21 @@ def make_train_step(network, optimizer, *, has_regions: bool = False,
                     has_ignore: bool = False, ignore_label: Optional[int] = None,
                     batch_dice: bool = False, n_ds_levels: int = 1,
                     loss_fn: Optional[Callable] = None,
+                    skip_nonfinite: bool = False,
                     timer=None) -> Callable:
     """Returns step(data, targets) -> loss (a detached device scalar): one
     forward (the network in training mode: a BatchNorm takes the batch's
     statistics and moves its running averages once), backward and
     optimizer update of ``network`` in place. ``loss_fn`` (logits, target)
     -> scalar replaces the default loss of :func:`make_loss_fn` (a trainer
-    variant's loss kind). ``step.timer`` (an engine ``PhaseTimer``, or
-    None; settable later) brackets the phases "forward_loss", "backward"
-    and "optimizer"."""
+    variant's loss kind). ``skip_nonfinite``: the Primus trainers' NaN
+    watchdog — a step whose loss is not finite makes no update, so the
+    parameters, the optimizer's moments and its schedule count stay as
+    they were (the JAX step's ``jnp.where(isfinite(loss), new, old)`` over
+    the whole state); deciding it costs one host sync per step, and
+    ``step.skipped`` counts such steps. ``step.timer`` (an engine
+    ``PhaseTimer``, or None; settable later) brackets the phases
+    "forward_loss", "backward" and "optimizer"."""
     if loss_fn is None:
         loss_fn = make_loss_fn(has_regions=has_regions, has_ignore=has_ignore,
                                ignore_label=ignore_label,
@@ -74,10 +80,15 @@ def make_train_step(network, optimizer, *, has_regions: bool = False,
         with timed_phase(step.timer, "backward"):
             loss.backward()
         with timed_phase(step.timer, "optimizer"):
-            optimizer.step()
+            if skip_nonfinite and not bool(torch.isfinite(loss)):
+                optimizer.zero_grad()
+                step.skipped += 1
+            else:
+                optimizer.step()
         return loss.detach()
 
     step.timer = timer
+    step.skipped = 0
     return step
 
 

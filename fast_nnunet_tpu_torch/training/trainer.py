@@ -71,6 +71,9 @@ class NNUNetTrainer:
     #: the training loss: "dc_ce" (DC + CE, or DC + BCE for regions) or a
     #: kind of training/losses.py ``loss_of_kind``
     loss_kind = "dc_ce"
+    #: the NaN watchdog of the Primus trainers: a step with a non-finite
+    #: loss makes no update (training/train_step.py ``skip_nonfinite``)
+    skip_nonfinite = False
 
     def __init__(self, plans: Union[dict, str], configuration: str, fold,
                  dataset_json: dict, device=None):
@@ -180,19 +183,25 @@ class NNUNetTrainer:
         self.num_input_channels = determine_num_input_channels(
             self.plans_manager, self.configuration_manager, self.dataset_json)
         net = self.build_network_architecture()
-        init_he_normal_(net, 12345 + self.fold
-                        if isinstance(self.fold, int) else 0)
+        self.init_network_weights(net, 12345 + self.fold
+                                  if isinstance(self.fold, int) else 0)
         self.network = net.to(self.device)
         total_steps = self.num_epochs * self.num_iterations_per_epoch
         self.optimizer = self.configure_optimizer(total_steps)
         step_kwargs = self._step_kwargs()
         self.train_step = make_train_step(self.network, self.optimizer,
                                           loss_fn=self._train_loss_fn(),
+                                          skip_nonfinite=self.skip_nonfinite,
                                           **step_kwargs)
         self.val_step = make_val_step(
             self.network, num_heads=self.label_manager.num_segmentation_heads,
             **step_kwargs)
         self.was_initialized = True
+
+    def init_network_weights(self, net, seed: int) -> None:
+        """Fresh weights as the JAX trainer's ``network.init`` draws them
+        (he-normal for the U-Nets)."""
+        init_he_normal_(net, seed)
 
     def _step_kwargs(self) -> dict:
         return dict(has_regions=self.label_manager.has_regions,
@@ -480,7 +489,11 @@ class NNUNetTrainer:
             trainer_name=self.__class__.__name__,
             inference_allowed_mirroring_axes=
             self.inference_allowed_mirroring_axes,
-            extras={"train_step": int(self.optimizer.count)})
+            extras={"train_step": self._train_step_count()})
+
+    def _train_step_count(self) -> int:
+        """The JAX ``TrainState.step``: steps taken, each an update."""
+        return int(self.optimizer.count)
 
     def load_checkpoint(self, filename_or_checkpoint: Union[str, dict]
                         ) -> None:
@@ -495,8 +508,7 @@ class NNUNetTrainer:
         if ckpt.get("optimizer_state") is not None:
             optimizer_state_from_jax(self.optimizer, self.network,
                                      ckpt["optimizer_state"])
-        self.optimizer.count = int(ckpt.get("train_step",
-                                            self.optimizer.count))
+        self._restore_train_step_count(ckpt)
         self.current_epoch = ckpt.get("current_epoch", 0)
         self._best_ema = ckpt.get("_best_ema")
         if ckpt.get("logging") is not None:
@@ -504,6 +516,10 @@ class NNUNetTrainer:
         if ckpt.get("inference_allowed_mirroring_axes") is not None:
             self.inference_allowed_mirroring_axes = \
                 ckpt["inference_allowed_mirroring_axes"]
+
+    def _restore_train_step_count(self, ckpt: dict) -> None:
+        self.optimizer.count = int(ckpt.get("train_step",
+                                            self.optimizer.count))
 
     # ------------------------------------------------------------- final val
     def perform_actual_validation(self, save_probabilities: bool = False

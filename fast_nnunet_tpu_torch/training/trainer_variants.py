@@ -427,49 +427,3 @@ class NNUNetTrainerBN(NNUNetTrainer):
 
     def _use_remat(self):
         return False
-
-
-# --------------------------------------------------------------- Primus
-class _PrimusTrainer(NNUNetTrainer):
-    """The Primus transformer trainers' settings (AdamW b2 0.98, clip 1,
-    linear warmup then poly from 3e-4, weight decay 5e-2, no deep
-    supervision). The Primus network is not ported: building it raises."""
-    embed_dim, depth, num_heads = 396, 12, 6
-    batch_size = None
-
-    def __init__(self, *a, **kw):
-        super().__init__(*a, **kw)
-        self.enable_deep_supervision = False
-        self.initial_lr = 3e-4
-        self.weight_decay = 5e-2
-        self.warmup_epochs = 50
-        if self.batch_size is not None:
-            self.configuration_manager.configuration["batch_size"] = \
-                self.batch_size
-
-    def build_network_architecture(self):
-        raise NotImplementedError(
-            f"{type(self).__name__}: the Primus network is not ported yet")
-
-    def configure_optimizer(self, total_steps: int):
-        warmup_steps = self.warmup_epochs * self.num_iterations_per_epoch
-        return nnunet_adamw(
-            self.network.parameters(),
-            linear_warmup_poly(self.initial_lr, total_steps, warmup_steps),
-            weight_decay=self.weight_decay, b1=0.9, b2=0.98, grad_clip=1.0)
-
-
-nnUNet_Primus_S_Trainer = type("nnUNet_Primus_S_Trainer", (_PrimusTrainer,),
-                               {})
-nnUNet_Primus_B_Trainer = type("nnUNet_Primus_B_Trainer", (_PrimusTrainer,),
-                               dict(embed_dim=792, depth=12, num_heads=12))
-nnUNet_Primus_M_Trainer = type("nnUNet_Primus_M_Trainer", (_PrimusTrainer,),
-                               dict(embed_dim=864, depth=16, num_heads=12))
-nnUNet_Primus_L_Trainer = type("nnUNet_Primus_L_Trainer", (_PrimusTrainer,),
-                               dict(embed_dim=1056, depth=24, num_heads=16))
-nnUNet_Primus_M_Trainer_BS8 = type("nnUNet_Primus_M_Trainer_BS8",
-                                   (nnUNet_Primus_M_Trainer,),
-                                   {"batch_size": 8})
-nnUNet_Primus_M_Trainer_BS8_2e4 = _set_attrs(
-    nnUNet_Primus_M_Trainer_BS8, "nnUNet_Primus_M_Trainer_BS8_2e4",
-    initial_lr=2e-4)

@@ -11,8 +11,8 @@ atol 3e-4; and the 2d + 3d_fullres ensemble that find-best proposes runs as
 written: both predict with ``--save_probabilities`` and
 ``fast_nnunet_ensemble_torch`` merges the two folders as they are. The 2d
 plan's pseudo-3D sampler and augmenter give the JAX package's batches bit
-for bit; distillation of a 2d plan raises ``NotImplementedError`` (it waits in
-ROADMAP.md §1's queue as "2d and cascade distillation")."""
+for bit; the distillation trainer builds on the 2d plan and takes a step
+(tests/test_torch_distill_configs.py holds 2d distillation to JAX's)."""
 import os
 import shutil
 
@@ -190,13 +190,48 @@ def test_2d_sampler_batches_match_jax(trained):
 
 
 def test_2d_distillation_waits(trained):
+    """The distillation trainer builds on the 2d plan (a 2D student at half
+    the widths, the trained 2D teacher) and one step on a batch of the 2d
+    sampler runs: finite losses, the student's parameters moved, the
+    teacher's not."""
+    import torch
+    from fast_nnunet_tpu_torch.models.unet import params_to_jax
     from fast_nnunet_tpu_torch.training.distill import \
         NNUNetDistillationTrainer
     from fast_nnunet_tpu_torch.utils.io import join, load_json
     root, _ = trained
     pre = join(root, "preprocessed", DS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NNUNetDistillationTrainer(load_json(join(pre, "nnUNetPlans.json")),
-                                  "2d", 0,
+    plans = load_json(join(pre, "nnUNetPlans.json"))
+    t = NNUNetDistillationTrainer(plans, "2d", 0,
                                   load_json(join(pre, "dataset.json")),
-                                  device="cpu")
+                                  device="cpu",
+                                  teacher_model_folder=_model(root, "2d"),
+                                  teacher_fold=0)
+    t.initialize()
+    feats = plans["configurations"]["2d"]["architecture"]["arch_kwargs"][
+        "features_per_stage"]
+    assert t.network.dim == 2 and len(t.teachers) == 1
+    assert t.teachers[0].dim == 2
+    assert [st.blocks["block_0"].conv.out_channels for st in
+            t.network.encoder.stages.values()] == [max(f // 2, 8)
+                                                   for f in feats]
+    t.get_dataloaders()
+    try:
+        data, targets = t.next_batch(t.dataloader_train)
+        assert data.dim() == 4      # (B, C, H, W) slices
+        s0, t0 = params_to_jax(t.network), params_to_jax(t.teachers[0])
+        total, seg, dist = t.distill_step(data, targets)
+    finally:
+        for loader in (t.dataloader_train, t.dataloader_val):
+            loader.shutdown()
+    assert all(torch.isfinite(v) for v in (total, seg, dist))
+    moved = params_to_jax(t.network)["params"]["encoder"]["stage_0"][
+        "block_0"]["conv"]["kernel"]
+    assert not np.array_equal(
+        moved, s0["params"]["encoder"]["stage_0"]["block_0"]["conv"][
+            "kernel"])
+    same = params_to_jax(t.teachers[0])["params"]["encoder"]["stage_0"][
+        "block_0"]["conv"]["kernel"]
+    np.testing.assert_array_equal(
+        same, t0["params"]["encoder"]["stage_0"]["block_0"]["conv"][
+            "kernel"])

@@ -521,6 +521,52 @@ def test_2d_training_norms_launch_kernel_a(cuda_device, cls):
                if p.grad is not None)
 
 
+def test_2d_distillation_step_launches_kernel_a_at_4d(cuda_device):
+    """A 2d distillation step on the card (a student at r = 2 and two
+    teachers, bf16): every one-pass norm at >= 4096 in-plane voxels of the
+    student and of each teacher launches kernel A on its 4-D activation,
+    the student's under autograd and the teachers' without."""
+    from fast_nnunet_tpu_torch.models.students import build_lite_student
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.training.distill import \
+        make_distill_train_step
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
+    arch = {"n_stages": 3, "features_per_stage": [16, 32, 64],
+            "kernel_sizes": [[3, 3]] * 3, "strides": [[1, 1], [2, 2], [2, 2]],
+            "n_conv_per_stage": [2, 2, 2], "n_conv_per_stage_decoder": [2, 2],
+            "conv_op": "torch.nn.modules.conv.Conv2d"}
+    student = build_lite_student("PlainConvUNet", arch, 1, K, 2,
+                                 compute_dtype=torch.bfloat16,
+                                 norm_onepass=True,
+                                 trainable=True).to(cuda_device)
+    teachers = [get_network_from_plans("PlainConvUNet", arch, (), 1, K,
+                                       compute_dtype=torch.bfloat16,
+                                       norm_onepass=True).to(cuda_device)
+                for _ in range(2)]
+    step = make_distill_train_step(
+        student, teachers, nnunet_sgd(student.parameters(), 1e-2),
+        alpha=0.3, temperature=3.0, n_ds_levels=2)
+    x = torch.randn(2, 1, 64, 64, device=cuda_device)
+    lab = torch.randint(0, K, (2, 64, 64), device=cuda_device)
+    shapes = []
+    real = ka.SpatialSumSumsq.apply
+
+    def recording(t):
+        shapes.append(tuple(t.shape))
+        return real(t)
+    ka.SpatialSumSumsq.apply = recording
+    n0 = spatial_sum_sumsq.launches
+    try:
+        total, seg, dist = step(x, (lab, lab[:, ::2, ::2]))
+    finally:
+        del ka.SpatialSumSumsq.apply   # the inherited classmethod again
+    # 64^2 only: encoder stage 0 and the last decoder stack, each 2 norms
+    assert spatial_sum_sumsq.launches - n0 == 4 + 2 * 4 == len(shapes)
+    assert all(len(sh) == 4 and sh[2:] == (64, 64) for sh in shapes)
+    assert sorted({sh[1] for sh in shapes}) == [8, 16]   # student, teachers
+    assert all(torch.isfinite(v) for v in (total, seg, dist))
+
+
 def test_train_step_cuda_matches_cpu(cuda_device):
     """Three SGD steps of a small training network, fp32 with TF32 off and
     deterministic cuDNN, on the card (kernel A) and on the CPU (plain

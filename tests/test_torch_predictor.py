@@ -151,13 +151,17 @@ def test_host_stages_and_logits_match_jax(predictor):
 
 
 def test_not_ported_inputs_raise(predictor, tmp_path):
-    """Primus checkpoints raise NotImplementedError; a previous stage's
-    segmentation given to a configuration that is not a cascade stage, or
-    missing for one that is, raises ValueError (the cascade stage itself is
-    rebuilt with 1 + K - 1 input channels); with no card, the default
-    device raises instead of falling back."""
+    """A checkpoint whose init_args carry ``primus_arch`` is rebuilt as that
+    Primus (the plans' patch, the checkpoint's dims) and predicts a mask of
+    the input's shape, while a CNN tree given to it raises; a previous
+    stage's segmentation given to a configuration that is not a cascade
+    stage, or missing for one that is, raises ValueError (the cascade stage
+    itself is rebuilt with 1 + K - 1 input channels); with no card, the
+    default device raises instead of falling back."""
     import json
     import pickle
+    from fast_nnunet_tpu_torch.models.primus import Primus, init_primus_
+    from fast_nnunet_tpu_torch.models.unet import params_to_jax
     from fast_nnunet_tpu_torch.training.checkpoint import load_checkpoint
     data, props = NiftiIO().read_images([INPUT])
     with pytest.raises(ValueError, match="previous stage"):
@@ -167,16 +171,27 @@ def test_not_ported_inputs_raise(predictor, tmp_path):
     shutil.copytree(MODEL, model)
     ckpt_path = model / "fold_0" / "checkpoint_final.fnnx"
     ckpt = load_checkpoint(str(ckpt_path))
-    ckpt["init_args"] = dict(ckpt["init_args"], primus_arch={"depth": 2})
-    with open(ckpt_path, "wb") as f:
-        pickle.dump(ckpt, f)
-    p = NNUNetPredictor(device="cpu")
-    with pytest.raises(NotImplementedError):
+    arch = {"embed_dim": 96, "depth": 2, "num_heads": 3,
+            "patch_embed_size": [8, 8, 8]}
+    k = predictor.label_manager.num_segmentation_heads
+    net = init_primus_(Primus(1, 96, (8, 8, 8), k, 2, 3, (16, 16, 16)), 3)
+    for weights in (ckpt["network_weights"], params_to_jax(net)):
+        with open(ckpt_path, "wb") as f:
+            pickle.dump(dict(ckpt, network_weights=weights, init_args=dict(
+                ckpt["init_args"], primus_arch=arch)), f)
+        p = NNUNetPredictor(device="cpu", use_mirroring=False)
         p.initialize_from_trained_model_folder(str(model), use_folds=[0])
+        assert isinstance(p.network, Primus)
+        assert (p.network.embed_dim, p.network.depth, p.network.num_heads,
+                p.network.patch_size) == (96, 2, 3, (16, 16, 16))
+        if weights is ckpt["network_weights"]:    # the golden CNN's tree
+            with pytest.raises(ValueError, match="tree and module differ"):
+                p.predict_single_npy_array(data, props)
+    seg = p.predict_single_npy_array(data, props)
+    assert seg.shape == data.shape[1:] and seg.max() < k
     plans = json.loads((model / "plans.json").read_text())
     plans["configurations"]["3d_fullres"]["previous_stage"] = "3d_lowres"
     (model / "plans.json").write_text(json.dumps(plans))
-    del ckpt["init_args"]["primus_arch"]
     with open(ckpt_path, "wb") as f:
         pickle.dump(ckpt, f)
     p.initialize_from_trained_model_folder(str(model), use_folds=[0])

@@ -137,9 +137,28 @@ def test_unknown_trainer_raises_and_lists_the_ported():
 
 
 def test_primus_network_is_not_built():
-    _, pt = _pair("nnUNet_Primus_S_Trainer")
-    with pytest.raises(NotImplementedError, match="Primus"):
-        pt.build_network_architecture()
+    """Every Primus trainer builds a ``Primus`` with its class's dims at the
+    plans' patch (built on the meta device: L has 0.3 G parameters), and
+    its ``_init_args`` carry the JAX trainer's ``primus_arch``."""
+    from fast_nnunet_tpu_torch.models.primus import Primus
+    names = [n for n in REFERENCE_TRAINER_NAMES if "Primus" in n] + [
+        "_Primus_S_96_BS1", "_Primus_B_96_BS1", "_Primus_M_96_BS1",
+        "_Primus_L_48_BS1"]
+    assert len(names) == 10
+    for name in names:
+        jt, pt = _pair(name)
+        pt.num_input_channels = 1
+        with torch.device("meta"):
+            net = pt.build_network_architecture()
+        assert isinstance(net, Primus), name
+        assert (net.embed_dim, net.depth, net.num_heads) == (
+            jt.embed_dim, jt.depth, jt.num_heads), name
+        assert net.patch_size == tuple(jt.configuration_manager.patch_size)
+        assert net.patch_embed_size == tuple(jt.patch_embed_size)
+        assert net.num_classes == pt.label_manager.num_segmentation_heads
+        assert net.trainable
+        assert pt._init_args()["primus_arch"] == \
+            jt._init_args()["primus_arch"], name
 
 
 # ---------------------------------------------------------------- losses
