@@ -114,15 +114,17 @@ the card. Run from the repository root:
    distillation at small size on the card. One ``{"resenc": ...}`` line.
 13. nnU-Net's 2d and 3d_lowres -> 3d_cascade_fullres configurations
    (``cascade:``), all through the port's entry points in this process:
-   5 training cases and 1 test case of (48, 512, 512) int16 CT at (2.5,
-   0.8, 0.8) mm (the serving workload's in-plane grid) with 61 labels;
+   CASCADE_N_TRAIN (2) training cases and 1 test case of (48, 512, 512)
+   int16 CT at (2.5, 0.8, 0.8) mm (the serving workload's in-plane grid)
+   with 61 labels;
    ``fast_nnunet_plan_and_preprocess_torch -d 990 -c 2d 3d_fullres
    3d_lowres`` (host seconds per step and per configuration), whose four
-   configurations must equal CASCADE_PLANS (the 2d: 512^2 patch, batch 10,
-   8 stages up to 512 features); ``fast_nnunet_train_torch 990 2d 0``,
+   configurations must equal CASCADE_PLANS (the 2d: 512^2 patch, batch 5,
+   8 stages up to 512 features); a ``splits_final.json`` with fold 0
+   (train case_001, validate case_000); ``fast_nnunet_train_torch 990 2d 0``,
    ``... 3d_lowres all`` and ``... 3d_cascade_fullres 0``, each one epoch of
    10 iterations, 2 validation iterations and the final validation (the 2d
-   one 2D-over-slices, the lowres one leaving 5 ``predicted_next_stage``
+   one 2D-over-slices, the lowres one leaving 2 ``predicted_next_stage``
    deposits on the 3d_fullres grid, the cascade one with the one-hot
    previous-stage channels; its host seconds split into sliding window,
    export, deposits and metrics): fed seconds per iteration, CUDA-event
@@ -228,6 +230,29 @@ the card. Run from the repository root:
    ``Primus``; a small Primus cuda vs cpu in fp32 (logits 1e-4 of their
    scale, one AdamW step's parameters 1e-5). One ``{"primus": ...}``
    line.
+18. Several GPUs (``multi:``), in phase 11's root after phase 17, on the
+   one card: (a) the slab-parallel s2d sweep
+   (``inference.sharded.predict_segmentation_multigpu_s2d``) of phase 2's
+   CT, preprocessed, with phase 2's student (61 classes, bf16, patch
+   160x96x96, tile batch 8) on 2 gloo ranks sharing cuda:0, parallel and
+   ``halo_exact``, against the single-card ``predict_segmentation_sweep_
+   s2d``: rows outside the halo bit-equal and >= 0.999 overall, the exact
+   mode bit-equal; each rank launched A, B and C, and its captured C and B
+   calls (its slab's shapes) equal the plain versions bit for bit; (b) the
+   plain sweep with kernel D the same way on a MULTI_PLAIN_SIZE^3 volume;
+   (c) NCCL at world 1: the s2d sweep bit-equal, and one ``run_training``
+   iteration through the launcher (``num_gpus=1, backend="nccl"``); (d)
+   ``run_training`` of phase 11's planned teacher on 2 gloo ranks through
+   the launcher (global batch 2, fold all, NoMirroring, 6 + 1
+   iterations): per-iteration losses identical on both ranks, the final
+   parameters equal, 32 kernel A launches a step on each, only rank 0
+   wrote checkpoints and summary.json, the 5 validation cases split over
+   the ranks; the first update on a fixed batch against one process on
+   the global batch (float32, 1e-5); (e) a small BatchNorm network with
+   batch Dice, two steps on 2 gloo ranks against one process on the
+   global batch (1e-5, running averages included). Sweep seconds and peak
+   memory per rank beside the single card's (a record: the ranks share
+   one card). One ``{"multi": ...}`` line.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -323,6 +348,12 @@ CASCADE_CASE = (48, 512, 512)
 CASCADE_SPACING = [2.5, 0.800000011920929, 0.800000011920929]  # 0.8 in f32,
 # as a NIfTI header stores it
 CASCADE_CONFIGS = ("2d", "3d_fullres", "3d_lowres", "3d_cascade_fullres")
+# two training cases (+ the test case) and one fold-0 split written by the
+# phase (train case_001, validate case_000): the 3d_lowres final validation
+# resamples each case's 61 classes twice on the host, 36 s a case. The 2d
+# batch follows the count (nnU-Net's planner caps a batch at 5% of the
+# dataset's voxels: 5 slices of 512^2 for 2 cases, 10 for 5)
+CASCADE_N_TRAIN = 2
 _CASCADE_FULLRES = {
     "patch_size": [24, 256, 256], "batch_size": 2,
     "spacing": CASCADE_SPACING, "normalization_schemes": ["CTNormalization"],
@@ -333,7 +364,7 @@ _CASCADE_FULLRES = {
 }
 CASCADE_PLANS = {
     "2d": {
-        "patch_size": [512, 512], "batch_size": 10,
+        "patch_size": [512, 512], "batch_size": 5,
         "spacing": CASCADE_SPACING[1:],
         "normalization_schemes": ["CTNormalization"], "n_stages": 8,
         "features_per_stage": [32, 64, 128, 256, 512, 512, 512, 512],
@@ -462,10 +493,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     dev = torch.device("cuda")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -2023,7 +2051,7 @@ def host_seconds(targets):
 def pipeline_path(torch, dev, a_row, iters=10, warm=3):
     """Phase 11 (``pipeline:``): nnU-Net's workflow from a raw dataset
     through the port's entry points, in process (docstring step 11); then
-    phases 12, 16 and 17 in the same temporary root."""
+    phases 12, 16, 17 and 18 in the same temporary root."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="fnn_chip_smoke_pipeline_")
@@ -2038,6 +2066,7 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
         resenc_path(torch, dev, a_row)
         formats_path(torch, dev, a_row, fed_npy)
         primus_path(torch, dev)
+        multi_path(torch, dev, a_row)
     finally:
         for k, v in old.items():
             if v is None:
@@ -3269,7 +3298,7 @@ def _distill_configuration(torch, dev, a_row, cfg, outs, iters, warm):
         NNUNetDistillationTrainer
     from fast_nnunet_tpu_torch.utils.io import join
 
-    ds, n = CASCADE_DS, PIPELINE_N_TRAIN
+    ds, n = CASCADE_DS, CASCADE_N_TRAIN
     results = join(os.environ["nnUNet_results"], ds)
     teacher = join(results, f"NNUNetTrainer__nnUNetPlans__{cfg}")
     os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
@@ -3378,13 +3407,15 @@ def _cascade(torch, dev, a_row, iters, warm):
     from fast_nnunet_tpu_torch.run.plan_and_preprocess import \
         plan_and_preprocess_entry
     from fast_nnunet_tpu_torch.run.predict import predict_entry_point
-    from fast_nnunet_tpu_torch.utils.io import join, load_json, subfiles
+    from fast_nnunet_tpu_torch.utils.io import (join, load_json, save_json,
+                                                subfiles)
 
     t_phase = time.perf_counter()
-    ds, n, ident = CASCADE_DS, PIPELINE_N_TRAIN, str(CASCADE_DS_ID)
+    ds, n, ident = CASCADE_DS, CASCADE_N_TRAIN, str(CASCADE_DS_ID)
     t0 = time.perf_counter()
     raw = write_raw_ct_dataset(os.environ["nnUNet_raw"], dataset=ds,
-                               shape=CASCADE_CASE, spacing=CASCADE_SPACING)
+                               shape=CASCADE_CASE, spacing=CASCADE_SPACING,
+                               n_train=n)
     host = {"write_raw_s": time.perf_counter() - t0}
     print(f"cascade: raw dataset {ds}: {n} training cases and 1 test case "
           f"{CASCADE_CASE} int16 at {CASCADE_SPACING} mm, {TRAIN_K} labels, "
@@ -3423,6 +3454,9 @@ def _cascade(torch, dev, a_row, iters, warm):
                 "nnUNetPlans_3d_lowres"):
         stored = os.listdir(join(pre, did))
         check(len(stored) == 3 * n, f"{did} holds {stored}")
+    # fold 0 of a dataset too small for 5 folds: the user's own split
+    save_json([{"train": [f"case_{i:03d}" for i in range(1, n)],
+                "val": ["case_000"]}], join(pre, "splits_final.json"))
 
     # ---- fast_nnunet_train_torch 990 2d 0 / 3d_lowres all /
     #      3d_cascade_fullres 0
@@ -3727,6 +3761,7 @@ def _fast_inference(torch, dev, root, n_slices):
     import shutil
     import socket
     import numpy as np
+    from fast_nnunet_tpu_torch.device import resolve_device
     from fast_nnunet_tpu_torch.export.export_model import \
         export_model_folder_to_artifact
     from fast_nnunet_tpu_torch.fast_inference import \
@@ -3768,7 +3803,8 @@ def _fast_inference(torch, dev, root, n_slices):
         check(st["max_rel"] <= 1e-2, f"{name} deviates {st['max_rel']}")
     meta = load_json(join(root, "export", "model_config.json"))
     check(meta["input_shape"] == [8, 1, *TRAIN_PATCH]
-          and meta["device"] == str(dev) and meta["artifact"] == "model.pt2",
+          and torch.device(meta["device"]) == resolve_device(dev)
+          and meta["artifact"] == "model.pt2",
           f"sidecar {meta['input_shape']} {meta['device']}")
     check(load_json(join(root, "export_tta", "model_config.json"))[
         "mirroring_baked_into_artifact"] is True, "tta sidecar")
@@ -3965,6 +4001,628 @@ def _fast_inference(torch, dev, root, n_slices):
           + f"; peak device memory while serving {peak / 2**30:.2f} GiB; "
           f"phase wall {out['wall_s']:.3f} s")
     print(json.dumps({"fast_inference": out}))
+    return out
+
+
+
+# ------------------------------------------------------------------ multi
+MULTI_PLAIN_SIZE = 256   # phase 18(b): the plain slab sweep's volume edge
+MULTI_ITERS, MULTI_WARM = 7, 1   # phase 18(d): 6 + 1 iterations
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def halo_rows(starts, owned, p0, D, x_extent):
+    """Rows past each slab boundary that tiles starting left of it reach
+    (their sums take a neighbour's subtotal last)."""
+    import numpy as np
+    rows = np.zeros(x_extent, bool)
+    for d in range(1, D):
+        b = d * owned
+        spill = max((s + p0 for s in starts if s < b), default=0)
+        rows[b:min(spill, x_extent)] = True
+    return rows
+
+
+def _multi_engine(torch, kind, dev):
+    """Phase 2's student as the s2d engine (kind "s2d": bf16, patch
+    160x96x96, tile batch 8) or phase 4's plain engine with kernel D
+    ("plain"), on ``dev``, with its seed-0 weights."""
+    from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
+    from fast_nnunet_tpu_torch.inference.turbo import TurboConfig
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  random_plain_params)
+    from fast_nnunet_tpu_torch.models.students import \
+        build_student_arch_kwargs
+    cfg = TurboConfig.from_ini(os.path.join(
+        HERE, "engine", "config", "fast_nnunet_bone_turbo.ini"))
+    K = cfg.num_classes
+    arch = build_student_arch_kwargs(TEACHER_ARCH, 2)
+    if kind == "s2d":
+        net = make_s2d_engine_net(arch, K, 1, compute_dtype=torch.bfloat16)
+        net.to(dev)
+        tree = net.convert_params(random_plain_params(arch, 1, K, seed=0))
+        return SlidingWindowEngine(
+            net, cfg.patch_size, K, tile_step_size=cfg.step_size,
+            use_gaussian=cfg.use_gaussian, compute_dtype=torch.bfloat16,
+            sweep_acc_dtype=torch.bfloat16, shape_bucket=32, tile_batch=8,
+            device=dev), tree, cfg
+    net = get_network_from_plans("PlainConvUNet", arch, (), 1, K,
+                                 compute_dtype=torch.bfloat16).to(dev)
+    return SlidingWindowEngine(
+        net, (96, 96, 160), K, tile_step_size=0.5, use_gaussian=True,
+        compute_dtype=torch.bfloat16, sweep_acc_dtype=torch.bfloat16,
+        shape_bucket=32, tile_batch=8, use_fused_accumulate=True,
+        device=dev), random_plain_params(arch, 1, K, seed=0), cfg
+
+
+def _single_sweep(torch, engine, tree, kind, vol):
+    """(mask, seconds, peak GiB) of the single-card sweep, after a warm
+    run."""
+    run = engine.predict_segmentation_sweep_s2d if kind == "s2d" \
+        else engine.predict_segmentation_sweep
+    run(tree, vol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seg = run(tree, vol)
+    return (seg, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _multi_sweep_rank(kind, vol, modes):
+    """One rank of the slab-parallel sweep of ``kind`` on its card: a warm
+    run that captures one kernel call of each of the path's kernels at the
+    rank's slab shapes, then one counted, timed run per mode (halo_exact
+    False / True), then the captured calls against the plain versions."""
+    import torch
+    import fast_nnunet_tpu_torch.inference.engine as engine_module
+    from fast_nnunet_tpu_torch.inference import sharded
+    from fast_nnunet_tpu_torch.ops import finalize as kb
+    from fast_nnunet_tpu_torch.ops import s2d_accumulate as kc
+    from fast_nnunet_tpu_torch.ops import scatter_accumulate as kd
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.parallel import rank
+    dev = torch.device("cuda", torch.cuda.current_device())
+    engine, tree, _ = _multi_engine(torch, kind, dev)
+    fn = sharded.predict_segmentation_multigpu_s2d if kind == "s2d" \
+        else sharded.predict_segmentation_multigpu
+    cap = {}
+    real = {"c": engine_module.s2d_accumulate, "b": sharded.grouped_argmax,
+            "d": engine_module.fused_scatter_accumulate}
+
+    def c(acc, feats, g, w, b, coords, valid, row_base=0):
+        cap.setdefault("c", (acc.clone(), feats.clone(), g, w, b,
+                             coords.copy(), valid.copy(), row_base))
+        return real["c"](acc, feats, g, w, b, coords, valid, row_base)
+
+    def b(acc, num_classes, n_rows, row_base=0, n_zero=0):
+        cap.setdefault("b", (acc.clone(), num_classes, n_rows, row_base,
+                             n_zero))
+        return real["b"](acc, num_classes, n_rows, row_base, n_zero)
+
+    def d(acc, logits, gauss_flat, coords, n):
+        cap.setdefault("d", (acc.clone(), logits.clone(), gauss_flat,
+                             coords.copy(), n))
+        return real["d"](acc, logits, gauss_flat, coords, n)
+
+    engine_module.s2d_accumulate, sharded.grouped_argmax = c, b
+    engine_module.fused_scatter_accumulate = d
+    try:
+        fn(engine, tree, vol)
+    finally:
+        engine_module.s2d_accumulate = real["c"]
+        sharded.grouped_argmax = real["b"]
+        engine_module.fused_scatter_accumulate = real["d"]
+    kernels = {"A": ka.spatial_sum_sumsq, "B": kb.grouped_argmax,
+               "C": kc.s2d_accumulate, "D": kd.fused_scatter_accumulate}
+    out = {"rank": rank(), "masks": {}, "launches": {}, "seconds": {},
+           "peak_gib": {}}
+    for exact in modes:
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        seg = fn(engine, tree, vol, halo_exact=exact)
+        torch.cuda.synchronize()
+        out["seconds"][exact] = time.perf_counter() - t0
+        out["peak_gib"][exact] = torch.cuda.max_memory_allocated() / 2**30
+        out["launches"][exact] = {k: f.launches for k, f in kernels.items()}
+        out["masks"][exact] = seg
+    K = engine.num_classes
+    errs = {}
+    if "c" in cap:
+        acc, feats, g, w, bb, coords, valid, rb = cap["c"]
+        a_k, a_p = acc.clone(), acc.clone()
+        kc.s2d_accumulate(a_k, feats, g, w, bb, coords, valid, rb)
+        kc.s2d_accumulate_plain(a_p, feats, g, w, bb, coords, valid, rb)
+        errs["C"] = (float((a_k.float() - a_p.float()).abs().max()),
+                     torch.equal(a_k, a_p), tuple(acc.shape))
+    if "b" in cap:
+        acc, _, n_rows, rb, nz = cap["b"]
+        k1 = kb.grouped_argmax(acc.clone(), K, n_rows, rb, nz)
+        p1 = kb.grouped_argmax_plain(acc.clone(), K, n_rows, rb, nz)
+        errs["B"] = (float((k1.int() - p1.int()).abs().max()),
+                     torch.equal(k1, p1), tuple(acc.shape))
+    if "d" in cap:
+        acc, lg, gf, coords, n = cap["d"]
+        a_k, a_p = acc.clone(), acc.clone()
+        kd.fused_scatter_accumulate(a_k, lg, gf, coords, n)
+        kd.fused_scatter_accumulate_plain(a_p, lg, gf, coords, n)
+        errs["D"] = (float((a_k.float() - a_p.float()).abs().max()),
+                     torch.equal(a_k, a_p), tuple(acc.shape),
+                     coords[:n, 0].tolist())
+    out["captured"] = errs
+    del cap, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _multi_sweep_checks(torch, kind, vol, card, backend, modes, single,
+                        res):
+    """Phase 18's sweep checks on the ranks' results ``res`` of
+    :func:`_multi_sweep_rank` against the single-card sweep ``single`` =
+    (mask, seconds, peak GiB): rows outside the halo bit-equal and >= 0.999
+    overall in the parallel mode, every row in the exact mode (and at
+    world 1); each rank launched its path's kernels and its captured calls
+    equal the plain versions."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import _round_up
+    world = len(res)
+    engine, _, _ = _multi_engine(torch, kind, torch.device("cpu"))
+    spatial = vol.shape[1:]
+    if kind == "s2d":
+        vol_shape, steps = engine.s2d_sweep_plan(spatial)
+        starts = steps[0]
+        owned = _round_up(-(-vol_shape[0] // world), 2)
+    else:
+        vol_shape, starts, _, _, _ = engine._sweep_grid(spatial)
+        owned = -(-vol_shape[0] // world)
+    halo = halo_rows(starts, owned, engine.patch_size[0], world, spatial[0])
+    seg1, s1, p1 = single
+    out = {"world": world, "backend": backend, "volume": list(vol.shape),
+           "owned_rows": owned, "halo_rows": int(halo.sum()),
+           "single_s": s1, "single_peak_gib": p1, "ranks": []}
+    path_kernels = ("A", "B", "C") if kind == "s2d" else ("D",)
+    for r in res:
+        check(all(r["launches"][m][k] > 0 for m in modes
+                  for k in path_kernels),
+              f"multi: {kind} rank {r['rank']} launches {r['launches']}")
+        for k in ("B", "C") if kind == "s2d" else ("D",):
+            check(k in r["captured"] and r["captured"][k][1],
+                  f"multi: {kind} rank {r['rank']} captured kernel {k} "
+                  f"differs from its plain version: {r['captured'].get(k)}")
+        out["ranks"].append({k: r[k] for k in ("rank", "launches", "seconds",
+                                               "peak_gib", "captured")})
+        print(f"multi: {kind} rank {r['rank']}/{world} ({backend}): sweep s "
+              + json.dumps({str(m): round(v, 4)
+                            for m, v in r["seconds"].items()})
+              + " peak GiB " + json.dumps({str(m): round(v, 2) for m, v in
+                                           r["peak_gib"].items()})
+              + " launches " + json.dumps({str(m): v for m, v in
+                                           r["launches"].items()})
+              + f"; captured calls vs plain {r['captured']}; single card "
+              f"{s1:.4f} s, {p1:.2f} GiB; {card}")
+    for m in modes:
+        seg = res[0]["masks"][m]
+        check(seg is not None and seg.shape == seg1.shape,
+              f"multi: {kind} mask {None if seg is None else seg.shape}")
+        check(all(r["masks"][m] is None for r in res[1:]),
+              "multi: a rank other than 0 returned a mask")
+        agree = float((seg == seg1).mean())
+        outside = bool(np.array_equal(seg[~halo], seg1[~halo]))
+        halo_agree = float((seg[halo] == seg1[halo]).mean()) \
+            if halo.any() else 1.0
+        out[f"agreement_{'exact' if m else 'parallel'}"] = agree
+        print(f"multi: {kind} {world} ranks, halo_exact={m}: agreement with "
+              f"the single-card sweep {agree:.6f}, rows outside the halo "
+              f"({int((~halo).sum())} of {len(halo)}) bit-equal {outside}, "
+              f"halo rows {halo_agree:.6f}")
+        if m or world == 1:
+            check(np.array_equal(seg, seg1), f"multi: {kind} halo_exact="
+                  f"{m} on {world} ranks is not the single-card mask")
+        else:
+            check(outside and agree >= 0.999, f"multi: {kind} rows outside "
+                  f"the halo bit-equal {outside}, agreement {agree}")
+    return out
+
+
+def _multi_rank(sweeps, batch, bn_cases):
+    """Phase 18's first spawn, on each of two gloo ranks sharing the card:
+    the slab-parallel sweeps of ``sweeps`` ((kind, volume, modes) each),
+    then :func:`_multi_step_rank`."""
+    out = {"sweeps": [_multi_sweep_rank(*job) for job in sweeps]}
+    out["steps"] = _multi_step_rank(batch, bn_cases)
+    return out
+
+
+def _multi_train_rank(trainer_name, fold, iters, warm):
+    """Phase 18(d)'s rank: ``run_training`` in the process group, its
+    steps stamped and counted (``stamp_iterations``); what this rank
+    wrote (checkpoints, the metrics summary) and predicted (validation
+    cases); the final weights' digest."""
+    import hashlib
+    import torch
+    import fast_nnunet_tpu_torch.evaluation.metrics as metrics
+    import fast_nnunet_tpu_torch.inference.export as export
+    from fast_nnunet_tpu_torch.run.run_training import run_training
+    from fast_nnunet_tpu_torch.training import trainer as trainer_module
+    from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
+    cap, wrote, cases = {}, [], []
+    real = (trainer_module.save_checkpoint, metrics.compute_metrics_on_folder,
+            export.export_prediction_from_logits)
+
+    def save(fname, **kw):
+        wrote.append(os.path.basename(fname))
+        return real[0](fname, **kw)
+
+    def summary(gt, pred, out_file, *a, **kw):
+        wrote.append(os.path.basename(out_file))
+        return real[1](gt, pred, out_file, *a, **kw)
+
+    def export_case(logits, props, cm, pm, dj, ofile, *a, **kw):
+        cases.append(os.path.basename(ofile))
+        return real[2](logits, props, cm, pm, dj, ofile, *a, **kw)
+
+    trainer_module.save_checkpoint = save
+    metrics.compute_metrics_on_folder = summary
+    export.export_prediction_from_logits = export_case
+    orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm)
+    try:
+        trainer = run_training(str(PIPELINE_DS_ID), "3d_fullres", fold,
+                               trainer_name=trainer_name, device="cuda")
+    finally:
+        NNUNetTrainer.run_train_iterations = orig
+        (trainer_module.save_checkpoint, metrics.compute_metrics_on_folder,
+         export.export_prediction_from_logits) = real
+    h = hashlib.sha256()
+    for p in trainer.network.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    st = cap["stamps"]
+    return {"rank": trainer.rank, "world": trainer.world_size,
+            "losses": [float(o) for o in cap["outs"]],
+            "step_launches": cap["step_launches"],
+            "fed_s": (st[-1] - st[warm]) / (iters - warm),
+            "digest": h.hexdigest(), "wrote": wrote, "val_cases": cases,
+            "output_folder": trainer.output_folder,
+            "peak_gib": cap["peak_bytes"] / 2**30}
+
+
+def _multi_step_rank(batch, bn_cases):
+    """Phase 18(d)'s first update and 18(e)'s global statistics on this
+    rank's slices: the planned teacher's trainer (fold all, float32, TF32
+    off) steps once on its slice of ``batch``; each small case of
+    ``bn_cases`` steps on its slices of its batches. Returns the weights."""
+    import torch
+    from fast_nnunet_tpu_torch.parallel import rank, world_size
+    from fast_nnunet_tpu_torch.parallel.distributed import data_group
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, n = rank(), world_size()
+    trainer = _fixed_step_trainer(torch)
+    b = batch["data"].shape[0] // n
+    local = {"data": batch["data"][r * b:(r + 1) * b],
+             "target": [t[r * b:(r + 1) * b] for t in batch["target"]]}
+    loss = float(trainer.train_step(*trainer.batch_to_device(local)))
+    out = {"teacher": {"loss": loss, "params": _param_arrays(
+        trainer.network)}}
+    for name, case in bn_cases.items():
+        out[name] = _small_steps(torch, case, data_group(), r, n)
+    return out
+
+
+def _fixed_step_trainer(torch):
+    from fast_nnunet_tpu_torch.run.run_training import get_trainer_from_args
+    trainer = get_trainer_from_args(
+        str(PIPELINE_DS_ID), "3d_fullres", "all",
+        "NNUNetTrainerNoMirroring", device="cuda")
+    trainer.compute_dtype = torch.float32
+    trainer.initialize()
+    return trainer
+
+
+def _param_arrays(net):
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in net.state_dict().items()}
+
+
+def _small_steps(torch, case, group, r, n):
+    """Two SGD steps of the small BatchNorm network (batch Dice) on rank
+    r's slices of the case's global batches (n = 1: the whole batch)."""
+    from fast_nnunet_tpu_torch.models.blocks import sync_batch_stats
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.unet import init_he_normal_
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_sgd
+    from fast_nnunet_tpu_torch.training.schedules import poly_lr
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+    dev = torch.device("cuda", torch.cuda.current_device())
+    net = get_network_from_plans(
+        "PlainConvUNet",
+        dict(SMALL_ARCH, norm_op="torch.nn.modules.batchnorm.BatchNorm3d"),
+        (), 1, 4,
+        compute_dtype=torch.float32, trainable=True)
+    init_he_normal_(net, 0)
+    net = sync_batch_stats(net.to(dev), group)
+    opt = nnunet_sgd(net.parameters(), poly_lr(1e-2, 10))
+    step = make_train_step(net, opt, n_ds_levels=2, batch_dice=True,
+                           group=group)
+    losses = []
+    for x, lab in case["batches"]:
+        b = x.shape[0] // n
+        sl = slice(r * b, (r + 1) * b)
+        t = torch.from_numpy(lab[sl]).long().to(dev)
+        losses.append(float(step(torch.from_numpy(x[sl]).to(dev),
+                                 (t, t[:, ::2, ::2, ::2]))))
+    return {"losses": losses, "params": _param_arrays(net)}
+
+
+def _allclose(got, want, tol=1e-5):
+    """max |got - want| - tol * (1 + |want|) over every tensor (<= 0:
+    within tolerance)."""
+    import numpy as np
+    return max(float((np.abs(got[k] - want[k])
+                      - tol * (1 + np.abs(want[k]))).max()) for k in want)
+
+
+def multi_path(torch, dev, a_row):
+    """Phase 18 (``multi:``), in phase 11's root after phase 17: the
+    slab-parallel sweeps, NCCL at world size 1, data-parallel training on
+    two gloo ranks sharing the card, the global batch's Dice and
+    BatchNorm (docstring step 18). Four spawns: two gloo ranks for the
+    sweeps and the fixed-batch steps, one NCCL rank for the sweep, then
+    ``run_training`` through the launcher under NCCL (1 rank) and gloo (2
+    ranks)."""
+    from fast_nnunet_tpu_torch.parallel import spawn
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"card": card}
+    refs = _multi_references(torch, dev)
+    torch.cuda.empty_cache()
+    sweeps = [("s2d", refs["s2d_vol"], (False, True)),
+              ("plain", refs["plain_vol"], (False, True))]
+    t0 = time.perf_counter()
+    res = spawn(_multi_rank, 2, device="cuda", backend="gloo",
+                args=(sweeps, refs["batch"], refs["cases"]))
+    out["gloo_spawn_wall_s"] = time.perf_counter() - t0
+    for i, (kind, vol, modes) in enumerate(sweeps):
+        out[kind] = _multi_sweep_checks(
+            torch, kind, vol, card, "gloo", modes, refs[kind],
+            [r["sweeps"][i] for r in res])
+    out.update(_multi_step_checks(refs, [r["steps"] for r in res], card))
+    del res
+    # ---- (c) the s2d sweep on one NCCL rank
+    t0 = time.perf_counter()
+    res = spawn(_multi_sweep_rank, 1, device="cuda", backend="nccl",
+                args=("s2d", refs["s2d_vol"], (False,)))
+    out["nccl_spawn_wall_s"] = time.perf_counter() - t0
+    out["s2d_nccl_world_1"] = _multi_sweep_checks(
+        torch, "s2d", refs["s2d_vol"], card, "nccl", (False,), refs["s2d"],
+        res)
+    del res, refs
+    out["train"] = _multi_training(torch, dev, card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"multi: phase wall {out['wall_s']:.3f} s")
+    print(json.dumps({"multi": out}, default=str))
+    return out
+
+
+def _multi_references(torch, dev):
+    """What phase 18 holds its ranks against, from this one process: the
+    s2d sweep of phase 2's CT preprocessed and the plain sweep with kernel
+    D of a MULTI_PLAIN_SIZE^3 volume (mask, seconds, peak GiB), the
+    planned teacher's first update on a fixed validation batch of 2
+    (float32, TF32 off), two steps of a small BatchNorm network with batch
+    Dice on a global batch of 4."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.turbo import TurboPipeline
+    from fast_nnunet_tpu_torch.utils.synthetic_ct import make_synthetic_ct
+    refs = {}
+    engine, tree, cfg = _multi_engine(torch, "s2d", dev)
+    ct, spacing = make_synthetic_ct((512, 512, 500), (0.8, 0.8, 1.0), seed=0)
+    with torch.no_grad():
+        vol_dev, new_shape, _, _ = TurboPipeline(engine, cfg).preprocess(
+            ct[None], spacing)
+        refs["s2d_vol"] = vol_dev[(slice(None),) + tuple(
+            slice(0, n) for n in new_shape)].float().cpu().numpy()
+    del vol_dev, ct
+    refs["s2d"] = _single_sweep(torch, engine, tree, "s2d", refs["s2d_vol"])
+    print(f"multi: s2d volume {refs['s2d_vol'].shape} (phase 2's CT "
+          f"preprocessed), single-card sweep {refs['s2d'][1]:.4f} s, peak "
+          f"{refs['s2d'][2]:.2f} GiB")
+    del engine
+    size = MULTI_PLAIN_SIZE
+    engine, tree, _ = _multi_engine(torch, "plain", dev)
+    refs["plain_vol"] = (np.random.RandomState(0).rand(
+        1, size, size, size).astype(np.float32) - 0.5) * 2
+    refs["plain"] = _single_sweep(torch, engine, tree, "plain",
+                                  refs["plain_vol"])
+    print(f"multi: plain volume {refs['plain_vol'].shape}, single-card sweep "
+          f"{refs['plain'][1]:.4f} s, peak {refs['plain'][2]:.2f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = _fixed_step_trainer(torch)
+        ref.get_dataloaders()
+        batch = next(ref.dataloader_val)
+        for d in (ref.dataloader_train, ref.dataloader_val):
+            d.shutdown()
+        refs["batch"] = {"data": np.asarray(batch["data"]),
+                         "target": [np.asarray(t) for t in batch["target"]]}
+        refs["ref_loss"] = float(ref.train_step(*ref.batch_to_device(
+            refs["batch"])))
+        refs["ref_params"] = _param_arrays(ref.network)
+        del ref
+        rng = np.random.RandomState(5)
+        batches = []
+        for _ in range(2):
+            x = rng.randn(4, 1, 32, 32, 32).astype(np.float32)
+            lab = rng.randint(0, 4, (4, 32, 32, 32)).astype(np.int64)
+            lab[:2][lab[:2] == 3] = 0   # rank 0's slice lacks class 3
+            x[:, 0] += lab
+            batches.append((x, lab))
+        refs["cases"] = {"bn_batch_dice": {"batches": batches}}
+        refs["small"] = _small_steps(torch, refs["cases"]["bn_batch_dice"],
+                                     None, 0, 1)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = tf32
+    return refs
+
+
+def _multi_training(torch, dev, card):
+    import numpy as np
+    from fast_nnunet_tpu_torch.run.run_training import run_training
+    from fast_nnunet_tpu_torch.utils.io import join, load_json
+    out = {}
+    old = {k: os.environ.get(k) for k in (
+        "FNNT_ITERS_PER_EPOCH", "FNNT_VAL_ITERS_PER_EPOCH",
+        "FNNT_NUM_EPOCHS")}
+    os.environ.update(FNNT_VAL_ITERS_PER_EPOCH="1", FNNT_NUM_EPOCHS="1")
+    try:
+        # ---- (c) one iteration through the -num_gpus 1 path under NCCL
+        os.environ["FNNT_ITERS_PER_EPOCH"] = "1"
+        t0 = time.perf_counter()
+        (r1,) = run_training(str(PIPELINE_DS_ID), "3d_fullres", 0,
+                             trainer_name="NNUNetTrainerNoMirroring",
+                             device="cuda", num_gpus=1, backend="nccl")
+        lg = r1["logging"]
+        out["nccl_world_1"] = {"wall_s": time.perf_counter() - t0,
+                               "train_step": r1["train_step"],
+                               "train_loss": lg["train_losses"][0]}
+        print(f"multi: run_training -num_gpus 1 (NCCL, world "
+              f"{r1['world_size']}, {r1['device']}): 1 iteration, train "
+              f"loss {lg['train_losses'][0]:.4f}, val loss "
+              f"{lg['val_losses'][0]:.4f}, "
+              f"{out['nccl_world_1']['wall_s']:.3f} s with the final "
+              f"validation")
+        check(r1["world_size"] == 1 and r1["train_step"] == 1 and
+              np.isfinite(lg["train_losses"][0]), f"multi: NCCL run {r1}")
+
+        # ---- (d) 2 gloo ranks on the card through the launcher
+        os.environ["FNNT_ITERS_PER_EPOCH"] = str(MULTI_ITERS)
+        from fast_nnunet_tpu_torch.parallel import spawn
+        t0 = time.perf_counter()
+        ranks = spawn(_multi_train_rank, 2, device="cuda", backend="gloo",
+                      args=("NNUNetTrainerNoMirroring", "all", MULTI_ITERS,
+                            MULTI_WARM))
+        wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        folder = r0["output_folder"]
+        files = os.listdir(folder)
+        summary = load_json(join(folder, "validation", "summary.json"))
+        out["ddp"] = {"wall_s": wall, "ranks": [
+            {k: r[k] for k in ("rank", "losses", "step_launches", "fed_s",
+                               "wrote", "val_cases", "peak_gib")}
+            for r in ranks]}
+        for r in ranks:
+            print(f"multi: DDP rank {r['rank']}/{r['world']} (gloo, cuda:0 "
+                  f"shared): losses {[round(v, 6) for v in r['losses']]}, "
+                  f"kernel A launches per step {r['step_launches']}, fed "
+                  f"s/iteration {r['fed_s']:.4f} (iterations {MULTI_WARM}-"
+                  f"{MULTI_ITERS - 1}), peak {r['peak_gib']:.2f} GiB; wrote "
+                  f"{r['wrote']}; validation cases {r['val_cases']}; {card}")
+        check(r0["losses"] == r1["losses"] and all(
+            np.isfinite(r0["losses"])), f"multi: rank losses differ or are "
+            f"not finite: {r0['losses']} {r1['losses']}")
+        check(r0["digest"] == r1["digest"],
+              "multi: the replicas' parameters differ after training")
+        check(len(r0["losses"]) == MULTI_ITERS, f"multi: {r0['losses']}")
+        check(r1["wrote"] == [] and "checkpoint_final.fnnx" in r0["wrote"]
+              and "summary.json" in r0["wrote"],
+              f"multi: writes rank 0 {r0['wrote']}, rank 1 {r1['wrote']}")
+        check(sum(f.startswith("training_log_") for f in files) == 1 and
+              "checkpoint_final.fnnx" in files, f"multi: folder {files}")
+        cases = r0["val_cases"] + r1["val_cases"]
+        check(r0["val_cases"] and r1["val_cases"] and
+              len(set(cases)) == len(cases) == PIPELINE_N_TRAIN and
+              len(summary["metric_per_case"]) == PIPELINE_N_TRAIN,
+              f"multi: validation cases {r0['val_cases']} / "
+              f"{r1['val_cases']}")
+        out["ddp"]["gate"] = _multi_gate_check(torch, ranks)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def _multi_gate_check(torch, ranks):
+    """Kernel A launches per step per rank against the 4096-voxel gate's
+    count for the planned teacher (phase 11's)."""
+    from fast_nnunet_tpu_torch.models.factory import \
+        build_network_from_arch_dict
+    from fast_nnunet_tpu_torch.utils.io import join, load_json
+    plans = load_json(join(os.environ["nnUNet_preprocessed"], PIPELINE_DS,
+                           "nnUNetPlans.json"))
+    arch = plans["configurations"]["3d_fullres"]["architecture"]
+    bs = plans["configurations"]["3d_fullres"]["batch_size"]
+    patch = PIPELINE_3D_FULLRES["patch_size"]
+    remat = bs * math.prod(patch) >= 2 ** 21
+    net = build_network_from_arch_dict(arch, 1, TRAIN_K,
+                                       compute_dtype=torch.bfloat16,
+                                       remat=remat, norm_onepass=True,
+                                       trainable=True)
+    n_gate, n_remat = gated_norms(torch, net, torch.zeros((1, 1, *patch)))
+    predicted = n_gate + n_remat
+    for r in ranks:
+        check(all(k == predicted for k in r["step_launches"]),
+              f"multi: rank {r['rank']} kernel A launches per step "
+              f"{r['step_launches']} != the gate's {predicted}")
+    print(f"multi: kernel A launches per step on each rank {predicted} = "
+          f"the gate's count ({n_gate} norms at >= 4096 voxels, {n_remat} "
+          f"recomputed)")
+    return predicted
+
+
+def _multi_step_checks(refs, steps, card):
+    """(d)'s first update and (e)'s BatchNorm + batch Dice steps of the two
+    gloo ranks against one process on the global batch: within 1e-5 (abs +
+    rel), the replicas bit-equal."""
+    import numpy as np
+    out = {}
+    got0, got1 = (r["teacher"]["params"] for r in steps)
+    same = all(np.array_equal(got0[k], got1[k]) for k in got0)
+    margin = _allclose(got0, refs["ref_params"])
+    losses = [r["teacher"]["loss"] for r in steps]
+    out["first_update"] = {"rank_losses": losses,
+                           "one_process_loss": refs["ref_loss"],
+                           "margin": margin, "replicas_equal": same}
+    print(f"multi: first update of the planned teacher (float32, TF32 off) "
+          f"on 2 gloo ranks vs one process on the global batch of 2: "
+          f"losses {losses} vs {refs['ref_loss']}, parameter margin "
+          f"{margin:.3e} (<= 0: within 1e-5 abs + 1e-5 rel), replicas "
+          f"bit-equal {same}; {card}")
+    check(same and margin <= 0 and all(
+        abs(v - refs["ref_loss"]) <= 1e-5 * abs(refs["ref_loss"])
+        for v in losses), f"multi: first update {out['first_update']}")
+    s0, s1 = (r["bn_batch_dice"] for r in steps)
+    small = refs["small"]
+    margin = _allclose(s0["params"], small["params"])
+    same = all(np.array_equal(s0["params"][k], s1["params"][k])
+               for k in s0["params"])
+    out["bn_batch_dice"] = {"rank_losses": s0["losses"],
+                            "one_process_losses": small["losses"],
+                            "margin": margin, "replicas_equal": same}
+    print(f"multi: BatchNorm + batch Dice on 2 gloo ranks vs one process on "
+          f"the global batch of 4: losses {s0['losses']} vs "
+          f"{small['losses']}, margin {margin:.3e} (running averages "
+          f"included), replicas bit-equal {same}; {card}")
+    check(np.allclose(s0["losses"], small["losses"], rtol=1e-5, atol=0)
+          and margin <= 0 and same and s0["losses"] == s1["losses"],
+          f"multi: BatchNorm / batch Dice {out['bn_batch_dice']}")
     return out
 
 

@@ -1139,9 +1139,13 @@ class S2DChunks:
     forward gives the fold-averaged f32 s2d logits and each tile adds
     ``(y * g_s2d * valid).to(acc_dtype)`` with torch ops (the JAX sweep's
     XLA accumulate; its Pallas one takes one fold). Kernel B finalizes
-    either way and zeroes the rows it retires."""
+    either way and zeroes the rows it retires. ``acc_rows`` (default
+    p0/2) sizes the accumulator for a caller that places each chunk at a
+    row of its own (``accumulate(..., row0=)``; inference/sharded.py's slab
+    accumulator)."""
 
-    def __init__(self, eng: "SlidingWindowEngine", vol_shape, steps):
+    def __init__(self, eng: "SlidingWindowEngine", vol_shape, steps,
+                 acc_rows: Optional[int] = None):
         self.eng = eng
         self.starts_x, self.coords_b, self.valid_b = eng.sweep_tiles(steps)
         p0, py, pz = eng.patch_size
@@ -1158,7 +1162,8 @@ class S2DChunks:
             self.b_head = b_head.float().contiguous()
         self.coords_h = self.coords_b[..., 1:] // 2            # (nb, B, 2)
         self.acc = torch.zeros(
-            (self.p0h, self.plane[0] // 2, self.plane[1] // 2, 8 * self.K),
+            (self.p0h if acc_rows is None else acc_rows, self.plane[0] // 2,
+             self.plane[1] // 2, 8 * self.K),
             dtype=self.acc_dtype, device=eng.device)
         self.row_base = 0
 
@@ -1169,11 +1174,17 @@ class S2DChunks:
         return (self.starts_x[k + 1] - self.starts_x[k]) // 2
 
     def accumulate(self, vol: torch.Tensor, x0: int,
-                   valid_c: Optional[np.ndarray] = None) -> None:
+                   valid_c: Optional[np.ndarray] = None,
+                   row0: Optional[int] = None) -> None:
         """Accumulate one chunk's tile batches, reading vol (C, X, Y, Z)
         rows from x0. ``valid_c`` (nb, B) replaces the shared validity (air
-        skipping): a batch whose flags are all 0 skips its forward."""
+        skipping): a batch whose flags are all 0 skips its forward.
+        ``row0``: accumulate into the p0/2 rows from half-res row ``row0``
+        (a contiguous view, no cyclic origin) instead of the rolling
+        window."""
         eng = self.eng
+        acc, row_base = (self.acc, self.row_base) if row0 is None else \
+            (self.acc[row0:row0 + self.p0h], 0)
         p0, py, pz = eng.patch_size
         for bi in range(len(self.coords_b)):
             valid = self.valid_b[bi] if valid_c is None else valid_c[bi]
@@ -1191,20 +1202,21 @@ class S2DChunks:
                     out = out / len(self.nets)
             with eng.phase("accumulate"):
                 if len(self.nets) == 1:
-                    s2d_accumulate(self.acc, out, self.g_s2d, self.w_blocks,
+                    s2d_accumulate(acc, out, self.g_s2d, self.w_blocks,
                                    self.b_head, self.coords_h[bi], valid,
-                                   self.row_base)
+                                   row_base)
                 else:
-                    self._accumulate_logits(out, self.coords_h[bi], valid)
+                    self._accumulate_logits(acc, row_base, out,
+                                            self.coords_h[bi], valid)
 
-    def _accumulate_logits(self, y: torch.Tensor, coords_h: np.ndarray,
+    def _accumulate_logits(self, acc: torch.Tensor, row_base: int,
+                           y: torch.Tensor, coords_h: np.ndarray,
                            valid: np.ndarray) -> None:
         """y (B, 8K, p0h, pyh, pzh) f32 offset-major s2d logits; per tile
         ``acc[rows] = acc[rows] + (y * g * valid).to(acc_dtype)`` in batch
         order, virtual row i at physical row (row_base + i) % p0h."""
         p0h, pyh, pzh, K = self.p0h, self.pyh, self.pzh, self.K
-        rows = (self.row_base + torch.arange(p0h, device=self.acc.device)) \
-            % p0h
+        rows = (row_base + torch.arange(p0h, device=acc.device)) % p0h
         for t in range(y.shape[0]):
             v = float(valid[t])
             if v == 0.0:
@@ -1214,7 +1226,7 @@ class S2DChunks:
                 self.acc_dtype).reshape(p0h, pyh, pzh, 8 * K)
             y0, z0 = int(coords_h[t, 0]), int(coords_h[t, 1])
             idx = (rows, slice(y0, y0 + pyh), slice(z0, z0 + pzh))
-            self.acc[idx] = self.acc[idx] + contrib
+            acc[idx] = acc[idx] + contrib
 
     def finish(self, k: int, out: torch.Tensor) -> None:
         """Finalize chunk k's owned rows into out (2n, Y, Z) uint8 (kernel

@@ -48,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.stats import SpatialSumSumsq
+from ..parallel.collectives import all_reduce_, global_sum
 from .s2d import STATS_MIN_VOXELS
 
 
@@ -148,7 +149,13 @@ class InstanceNorm(nn.Module):
 class BatchStatsNorm(nn.Module):
     """Affine BatchNorm with float32 running averages (module docstring);
     ``weight``/``bias`` are the flax ``scale``/``bias``, ``running_mean``/
-    ``running_var`` the ``batch_stats`` ``mean``/``var``."""
+    ``running_var`` the ``batch_stats`` ``mean``/``var``. ``group`` (set by
+    :func:`sync_batch_stats`): the process group of a data-parallel step;
+    its training-mode statistics are then the global batch's, as the JAX
+    step takes them over the sharded batch (JAX blocks.py:100-102): two
+    passes of differentiable float32 all-reduces (the sum, then the
+    centred sum of squares) and one of the voxel count, so every rank
+    normalises with, and moves its running averages by, the same values."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -159,13 +166,28 @@ class BatchStatsNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.eps = float(eps)
         self.momentum = float(momentum)
+        self.group = None
+
+    def _global_stats(self, x32: torch.Tensor, dims):
+        """(var, mean, n) of the global batch (biased variance)."""
+        n_t = torch.tensor(float(x32.numel() // x32.shape[1]),
+                           device=x32.device)
+        n = float(all_reduce_(n_t, self.group))
+        mean = global_sum(x32.sum(dims), self.group) / n
+        shape = (1, -1) + (1,) * (x32.dim() - 2)
+        d = x32 - mean.reshape(shape)
+        var = global_sum((d * d).sum(dims), self.group) / n
+        return var, mean, int(n)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
-            var, mean = torch.var_mean(x32, dim=dims, correction=0)
-            n = x.numel() // x.shape[1]
+            if self.group is not None:
+                var, mean, n = self._global_stats(x32, dims)
+            else:
+                var, mean = torch.var_mean(x32, dim=dims, correction=0)
+                n = x.numel() // x.shape[1]
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1 - m) * self.running_mean
@@ -180,6 +202,15 @@ class BatchStatsNorm(nn.Module):
         y = y * self.weight.float().reshape(shape) \
             + self.bias.float().reshape(shape)
         return y.to(x.dtype)
+
+
+def sync_batch_stats(network: nn.Module, group) -> nn.Module:
+    """Make every BatchNorm of ``network`` take its training statistics
+    over ``group``'s global batch (None: this process's batch)."""
+    for m in network.modules():
+        if isinstance(m, BatchStatsNorm):
+            m.group = group
+    return network
 
 
 NORM_KINDS = ("instance", "instance1p", "batch")

@@ -47,7 +47,10 @@ def run_distillation_training(
         teacher_plans_identifier: str = "nnUNetPlans",
         student_plans_identifier: str = "nnUNetPlans", device=None):
     """Distil a student for one fold on ``device`` (default the card), then
-    validate it."""
+    validate it. Called on the ranks of parallel/distributed.py ``spawn``
+    (as ``spawn(distillation_rank, n, kwargs=...)``), it distils
+    data-parallel: the JAX distillation trainer inherits its mesh, and its
+    CLI has no ``-num_gpus``, so neither has this one."""
     from ..paths import get_preprocessed_folder
     dataset_name = maybe_convert_to_dataset_name(dataset_name_or_id)
     preprocessed = join(get_preprocessed_folder(), dataset_name)
@@ -102,6 +105,13 @@ def run_distillation_training(
     trainer.run_training()
     trainer.perform_actual_validation(False)
     return trainer
+
+
+def distillation_rank(**kwargs) -> dict:
+    """:func:`run_distillation_training` on one spawned rank; returns the
+    rank's summary (run/run_training.py ``rank_summary``)."""
+    from .run_training import rank_summary
+    return rank_summary(run_distillation_training(**kwargs))
 
 
 def _common_args(parser: argparse.ArgumentParser) -> None:

@@ -1,17 +1,25 @@
 """Training entry point of the port (nnUNetv2_train parity) — the
-counterpart of fast_nnunet_tpu/run/run_training.py on one GPU.
+counterpart of fast_nnunet_tpu/run/run_training.py.
 
     fast_nnunet_train_torch DATASET CONFIGURATION FOLD [-tr NNUNetTrainer]
         [-p nnUNetPlans] [-pretrained_weights ckpt.fnnx|ckpt.pth] [--c] [--val]
         [--val_best] [--npz] [--disable_checkpointing] [-device cuda|cpu]
+        [-num_gpus N] [-num_hosts H -coordinator HOST:PORT -process_id P]
 
 with ``nnUNet_raw``, ``nnUNet_preprocessed`` and ``nnUNet_results`` set.
 Trainers: ``NNUNetTrainer``, the distillation trainers, every trainer
 variant of training/trainer_variants.py and the Primus trainers of
 training/primus_trainers.py, in this framework's spelling or the
 reference's (``nnUNetTrainer*``); ResEnc plans (``-p
-nnUNetResEncUNetLPlans``) train the residual-encoder U-Net. Multi-GPU
-(``-num_gpus`` > 1) and multi-host training raise ``NotImplementedError``.
+nnUNetResEncUNetLPlans``) train the residual-encoder U-Net.
+
+``-num_gpus N`` spawns N ranks on this host (parallel/distributed.py
+``spawn``), one per card under NCCL (``-device cpu``: N CPU ranks under
+gloo), and trains data-parallel on the global batch (training/trainer.py).
+``-num_hosts H`` has JAX's meaning: every host runs the same command with
+its own ``-process_id`` and process 0's ``-coordinator`` address, and the
+world is the H hosts' ``num_gpus`` ranks each. Every rank trains and
+validates its share; rank 0 writes the files.
 Pretrained weights come from a ``.fnnx`` checkpoint or a reference ``.pth``
 (``utils/torch_import.py``).
 """
@@ -129,11 +137,34 @@ def run_training(dataset_name_or_id, configuration: str, fold,
                  disable_checkpointing: bool = False,
                  val_best: bool = False,
                  export_validation_probabilities: bool = False,
-                 device=None, num_gpus: int = 1, **trainer_kwargs):
+                 device=None, num_gpus: int = 1, num_hosts: int = 1,
+                 coordinator_address: str = None, process_id: int = 0,
+                 backend: str = None, **trainer_kwargs):
     """Train (unless ``only_run_validation``) and validate one fold on
-    ``device`` (default the card)."""
-    if num_gpus != 1:
-        raise NotImplementedError("multi-GPU training is not ported")
+    ``device`` (default the card). Returns the trainer; with ``num_gpus``
+    or ``num_hosts`` above 1, or a ``backend`` or coordinator given, the
+    run goes to ``num_gpus`` spawned ranks (parallel/distributed.py
+    ``spawn``, which takes ``backend``) and returns each local rank's
+    :func:`rank_summary`. Called inside a process group, it trains as that
+    group's rank."""
+    if num_gpus > 1 or num_hosts > 1 or backend is not None or \
+            coordinator_address is not None:
+        from ..parallel.distributed import spawn
+        kwargs = dict(
+            trainer_name=trainer_name, plans_identifier=plans_identifier,
+            pretrained_weights=pretrained_weights,
+            continue_training=continue_training,
+            only_run_validation=only_run_validation,
+            disable_checkpointing=disable_checkpointing, val_best=val_best,
+            export_validation_probabilities=export_validation_probabilities,
+            device=device, **trainer_kwargs)
+        return spawn(_run_training_rank, num_gpus,
+                     device="cuda" if device is None else device,
+                     backend=backend, num_hosts=num_hosts,
+                     coordinator_address=coordinator_address,
+                     process_id=process_id,
+                     args=(dataset_name_or_id, configuration, fold),
+                     kwargs=kwargs)
     if fold != "all":
         fold = int(fold)
     trainer = get_trainer_from_args(dataset_name_or_id, configuration, fold,
@@ -151,6 +182,21 @@ def run_training(dataset_name_or_id, configuration: str, fold,
         trainer.run_training()
     trainer.perform_actual_validation(export_validation_probabilities)
     return trainer
+
+
+def rank_summary(trainer: NNUNetTrainer) -> dict:
+    """What a spawned rank returns: its rank, device, logs and step
+    count."""
+    return {"rank": trainer.rank, "world_size": trainer.world_size,
+            "device": str(trainer.device),
+            "logging": trainer.logger.get_checkpoint(),
+            "train_step": trainer._train_step_count(),
+            "output_folder": trainer.output_folder}
+
+
+def _run_training_rank(dataset_name_or_id, configuration, fold, **kwargs):
+    return rank_summary(run_training(dataset_name_or_id, configuration, fold,
+                                     **kwargs))
 
 
 def run_training_entry(argv=None):
@@ -175,21 +221,34 @@ def run_training_entry(argv=None):
     parser.add_argument("-device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("-num_gpus", type=int, default=1,
-                        help="only 1 is ported")
+                        help="ranks on this host: one per card (NCCL), or "
+                             "CPU ranks under gloo with -device cpu")
     parser.add_argument("-num_hosts", type=int, default=1,
-                        help="only 1 is ported")
+                        help="multi-host training: number of participating "
+                             "hosts (each runs this command with its own "
+                             "-process_id)")
+    parser.add_argument("-coordinator", default=None,
+                        help="host:port of process 0's rendezvous store")
+    parser.add_argument("-process_id", type=int, default=0,
+                        help="this host's rank in [0, num_hosts)")
     args = parser.parse_args(argv)
-    if args.num_hosts != 1:
-        raise NotImplementedError("multi-host training is not ported")
-    run_training(args.dataset_name_or_id, args.configuration, args.fold,
-                 trainer_name=args.tr, plans_identifier=args.p,
-                 pretrained_weights=args.pretrained_weights,
-                 continue_training=args.continue_training,
-                 only_run_validation=args.validation_only,
-                 disable_checkpointing=args.disable_checkpointing,
-                 val_best=args.val_best,
-                 export_validation_probabilities=args.npz,
-                 device=args.device, num_gpus=args.num_gpus)
+    out = run_training(
+        args.dataset_name_or_id, args.configuration, args.fold,
+        trainer_name=args.tr, plans_identifier=args.p,
+        pretrained_weights=args.pretrained_weights,
+        continue_training=args.continue_training,
+        only_run_validation=args.validation_only,
+        disable_checkpointing=args.disable_checkpointing,
+        val_best=args.val_best, export_validation_probabilities=args.npz,
+        device=args.device, num_gpus=args.num_gpus,
+        num_hosts=args.num_hosts, coordinator_address=args.coordinator,
+        process_id=args.process_id)
+    if isinstance(out, list):  # this host's ranks, one line each
+        for r in out:
+            lg = r["logging"]
+            print(f"rank {r['rank']}/{r['world_size']} on {r['device']}: "
+                  f"train_losses {lg['train_losses']} val_losses "
+                  f"{lg['val_losses']} mean_fg_dice {lg['mean_fg_dice']}")
 
 
 if __name__ == "__main__":

@@ -73,7 +73,11 @@ def save_checkpoint(fname: str, *, network_weights: dict,
                     extras: Optional[dict] = None) -> None:
     """Write a pickle ``.fnnx`` with the JAX package's keys; the trees are
     flax-shaped nested dicts of numpy arrays (``models.unet.params_to_jax``,
-    :func:`optimizer_state_to_jax`)."""
+    :func:`optimizer_state_to_jax`). Inside a process group only rank 0
+    writes (its replica is every rank's); the others return."""
+    from ..parallel.distributed import is_main_process
+    if not is_main_process():
+        return
     ckpt = {
         "network_weights": network_weights,
         "optimizer_state": optimizer_state,

@@ -145,6 +145,7 @@ class AsyncBatchIterator:
                  pin_memory: bool = False):
         self.sampler = sampler
         self.pin_memory = pin_memory
+        self.seed = seed  # worker w draws from RandomState(seed + w)
         self.queue: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._threads = []

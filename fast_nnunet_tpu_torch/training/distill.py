@@ -22,6 +22,11 @@ the student's input channels, so a ``2d`` student learns from 2D teachers
 student and its teachers take the image plus one one-hot channel per
 foreground label of the previous stage. ``NNUNetDistillationTrainerDA5``
 trains the student under the DA5 augmentation.
+
+Data parallel, as the JAX trainer inherits its mesh: each rank holds the
+frozen teachers (replicated, never reduced) and a student replica; the
+seg loss takes its global terms over the group, the KL term is a mean
+over equal local batches, and only the student's gradients are averaged.
 """
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -32,6 +37,7 @@ from ..core.plans import PlansManager
 from ..models.factory import build_network_from_arch_dict, with_batch_norm
 from ..models.students import build_lite_student
 from ..models.unet import params_from_jax, params_from_jax_partial
+from ..parallel.collectives import average_gradients_, global_mean_
 from ..utils.io import isfile, join, load_json, subdirs
 from .augment_da5 import DA5TrainingAugmenter
 from .checkpoint import load_checkpoint as load_ckpt_file
@@ -68,12 +74,15 @@ def make_distill_train_step(student, teachers: Sequence[torch.nn.Module],
                             has_ignore: bool = False,
                             ignore_label: Optional[int] = None,
                             batch_dice: bool = False, n_ds_levels: int = 1,
-                            timer=None):
+                            timer=None, group=None):
     """Returns step(data, targets) -> (total, seg_loss, distill_loss),
-    detached device scalars, after one update of ``student`` in place."""
+    detached device scalars (the global batch's with ``group``), after one
+    update of ``student`` in place."""
     loss_fn = make_loss_fn(has_regions=has_regions, has_ignore=has_ignore,
-                           ignore_label=ignore_label, batch_dice=batch_dice)
+                           ignore_label=ignore_label, batch_dice=batch_dice,
+                           group=group)
     weights = ds_weights(n_ds_levels)
+    params = [p for p in student.parameters() if p.requires_grad]
 
     def step(data, targets):
         student.train()
@@ -87,9 +96,15 @@ def make_distill_train_step(student, teachers: Sequence[torch.nn.Module],
             total = (1.0 - alpha) * seg_loss + alpha * dloss
         with timed_phase(step.timer, "backward"):
             total.backward()
+        losses = torch.stack([total.detach(), seg_loss.detach(),
+                              dloss.detach()])
+        if group is not None:
+            with timed_phase(step.timer, "all_reduce"):
+                average_gradients_(params, group)
+                losses = global_mean_(losses, group)
         with timed_phase(step.timer, "optimizer"):
             optimizer.step()
-        return total.detach(), seg_loss.detach(), dloss.detach()
+        return tuple(losses.unbind())
 
     step.timer = timer
     return step
@@ -196,7 +211,8 @@ class NNUNetDistillationTrainer(NNUNetTrainer):
         self.load_teacher_model()
         self.distill_step = make_distill_train_step(
             self.network, self.teachers, self.optimizer, alpha=self.alpha,
-            temperature=self.temperature, **self._step_kwargs())
+            temperature=self.temperature, group=self.group,
+            **self._step_kwargs())
         self.print_to_log_file(
             f"Distillation: alpha={self.alpha} T={self.temperature} "
             f"r={self.feature_reduction_factor} "

@@ -10,11 +10,23 @@ DC_and_CE_loss / DC_and_BCE_loss with the ignore-label masking, and the
 deep-supervision weights 1/2^i with the lowest resolution's weight zeroed,
 normalised to sum 1. :func:`loss_of_kind` gives the loss variants of the
 trainer variants (JAX trainer_variants.py:116-178).
+
+``group`` (a process group, or None for this process alone): the losses
+of one rank of a data-parallel step, whose batch is its slice of the
+global batch. Every term that is not a mean over equal local batches is
+computed over the global batch, as the JAX step computes it on the
+sharded batch: batch Dice's sums (gathered per sample, so they add in
+the global batch's order), the ignore-label CE's and the masked BCE's
+sums and counts, and the top-k CE's voxels. Each rank then holds the same
+value of those terms, and parallel/collectives.py carries their gradient
+(see there for the factor).
 """
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import all_reduce_, global_cat, global_sum
 
 Tensor = torch.Tensor
 
@@ -57,8 +69,9 @@ def _per_class_sums_from_onehot(probs: Tensor, target: Tensor,
 def soft_dice_loss(logits: Tensor, target: Tensor,
                    loss_mask: Optional[Tensor] = None,
                    apply_nonlin: str = "softmax", batch_dice: bool = False,
-                   do_bg: bool = False, smooth: float = 1e-5) -> Tensor:
-    """-mean soft Dice (scalar)."""
+                   do_bg: bool = False, smooth: float = 1e-5,
+                   group=None) -> Tensor:
+    """-mean soft Dice (scalar); batch Dice sums over the global batch."""
     num_classes = logits.shape[1]
     x = logits.float()
     if apply_nonlin == "softmax":
@@ -81,6 +94,9 @@ def soft_dice_loss(logits: Tensor, target: Tensor,
             probs_f, target.reshape(B, -1), num_classes, mask_f)
 
     if batch_dice:
+        if group is not None:
+            intersect, sum_pred, sum_gt = global_cat(torch.stack(
+                [intersect, sum_pred, sum_gt], 1), group).unbind(1)
         intersect, sum_pred, sum_gt = (intersect.sum(0), sum_pred.sum(0),
                                        sum_gt.sum(0))
     if not do_bg:
@@ -100,22 +116,34 @@ def _per_voxel_ce(logits: Tensor, labels: Tensor) -> Tensor:
     return lse - picked
 
 
+def _global_count(mask: Tensor, group) -> Tensor:
+    """The number of set voxels of ``mask`` over the global batch."""
+    return all_reduce_(mask.sum(), group) if group is not None \
+        else mask.sum()
+
+
 def robust_cross_entropy(logits: Tensor, labels: Tensor,
-                         ignore_index: Optional[int] = None) -> Tensor:
-    """Mean CE over the voxels that are not ``ignore_index``."""
+                         ignore_index: Optional[int] = None,
+                         group=None) -> Tensor:
+    """Mean CE over the voxels that are not ``ignore_index`` (over the
+    global batch's voxels)."""
     if ignore_index is None:
         return _per_voxel_ce(logits, labels).mean()
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     ce = _per_voxel_ce(logits, safe)
-    denom = torch.clamp(mask.sum(), min=1)
-    return torch.where(mask, ce, torch.zeros_like(ce)).sum() / denom
+    denom = torch.clamp(_global_count(mask, group), min=1)
+    num = torch.where(mask, ce, torch.zeros_like(ce)).sum()
+    if group is not None:
+        num = global_sum(num, group)
+    return num / denom
 
 
 def topk_cross_entropy(logits: Tensor, labels: Tensor, k_percent: float = 10.0,
                        ignore_index: Optional[int] = None,
-                       label_smoothing: float = 0.0) -> Tensor:
-    """Mean CE over the k% hardest voxels (ignored voxels count 0)."""
+                       label_smoothing: float = 0.0, group=None) -> Tensor:
+    """Mean CE over the k% hardest voxels of the global batch (ignored
+    voxels count 0)."""
     def voxel_ce(lg, lb):
         ce = _per_voxel_ce(lg, lb)
         if label_smoothing > 0.0:
@@ -133,39 +161,48 @@ def topk_cross_entropy(logits: Tensor, labels: Tensor, k_percent: float = 10.0,
     else:
         ce = voxel_ce(logits, labels)
     flat = ce.reshape(-1)
+    if group is not None:
+        flat = global_cat(flat, group)
     n_keep = max(1, int(flat.shape[0] * k_percent / 100))
     return torch.topk(flat, n_keep).values.mean()
 
 
 def binary_cross_entropy_with_logits(logits: Tensor, target: Tensor,
-                                     loss_mask: Optional[Tensor] = None
-                                     ) -> Tensor:
+                                     loss_mask: Optional[Tensor] = None,
+                                     group=None) -> Tensor:
     x = logits.float()
     t = target.float()
     per = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
     if loss_mask is None:
         return per.mean()
     m = loss_mask.float()[:, None]
-    return (per * m).sum() / torch.clamp((m * torch.ones_like(per)).sum(),
-                                         min=1e-8)
+    num = (per * m).sum()
+    den = (m * torch.ones_like(per)).sum().detach()
+    if group is not None:
+        num, den = global_sum(num, group), all_reduce_(den.clone(), group)
+    return num / torch.clamp(den, min=1e-8)
 
 
 # ---------------------------------------------------------------- compound losses
 def dc_and_ce_loss(logits: Tensor, target: Tensor, *, batch_dice: bool,
                    ignore_label: Optional[int] = None, weight_ce: float = 1.0,
-                   weight_dice: float = 1.0, smooth: float = 1e-5) -> Tensor:
+                   weight_dice: float = 1.0, smooth: float = 1e-5,
+                   group=None) -> Tensor:
     """Label-based training loss: Dice without background, CE over all
     classes; ignore-label voxels are masked from Dice and skipped by CE."""
     if ignore_label is not None:
         mask = target != ignore_label
         target_dice = torch.where(mask, target, torch.zeros_like(target))
         dc = soft_dice_loss(logits, target_dice, loss_mask=mask,
-                            batch_dice=batch_dice, do_bg=False, smooth=smooth)
-        ce = robust_cross_entropy(logits, target, ignore_index=ignore_label)
-        ce = torch.where(mask.sum() > 0, ce, torch.zeros_like(ce))
+                            batch_dice=batch_dice, do_bg=False, smooth=smooth,
+                            group=group)
+        ce = robust_cross_entropy(logits, target, ignore_index=ignore_label,
+                                  group=group)
+        ce = torch.where(_global_count(mask, group) > 0, ce,
+                         torch.zeros_like(ce))
     else:
         dc = soft_dice_loss(logits, target, batch_dice=batch_dice,
-                            do_bg=False, smooth=smooth)
+                            do_bg=False, smooth=smooth, group=group)
         ce = robust_cross_entropy(logits, target)
     return weight_ce * ce + weight_dice * dc
 
@@ -173,7 +210,7 @@ def dc_and_ce_loss(logits: Tensor, target: Tensor, *, batch_dice: bool,
 def dc_and_bce_loss(logits: Tensor, target_regions: Tensor, *,
                     batch_dice: bool, has_ignore: bool = False,
                     weight_ce: float = 1.0, weight_dice: float = 1.0,
-                    smooth: float = 1e-5) -> Tensor:
+                    smooth: float = 1e-5, group=None) -> Tensor:
     """Region-based training loss. ``target_regions`` is (B, R[+1], *S);
     with ``has_ignore`` the last channel is the ignore mask (1 = ignore)."""
     if has_ignore:
@@ -183,8 +220,10 @@ def dc_and_bce_loss(logits: Tensor, target_regions: Tensor, *,
         mask = None
         target = target_regions
     dc = soft_dice_loss(logits, target, loss_mask=mask, apply_nonlin="sigmoid",
-                        batch_dice=batch_dice, do_bg=True, smooth=smooth)
-    ce = binary_cross_entropy_with_logits(logits, target, loss_mask=mask)
+                        batch_dice=batch_dice, do_bg=True, smooth=smooth,
+                        group=group)
+    ce = binary_cross_entropy_with_logits(logits, target, loss_mask=mask,
+                                          group=group)
     return weight_ce * ce + weight_dice * dc
 
 
@@ -193,37 +232,40 @@ LOSS_KINDS = ("ce", "dice", "topk10", "topk10_ls01", "dc_topk10",
 
 
 def loss_of_kind(kind: str, *, batch_dice: bool,
-                 ignore_label: Optional[int] = None) -> Callable:
+                 ignore_label: Optional[int] = None, group=None) -> Callable:
     """(logits, label target) -> scalar for a trainer variant's loss kind
     (:data:`LOSS_KINDS`), as the JAX ``_LossOverrideTrainer`` builds it;
     ``ignore_label`` is the label manager's ignore label when the dataset
     has one, else None."""
-    ignore = ignore_label
+    ignore, g = ignore_label, group
     if kind == "ce":
-        return lambda lg, t: robust_cross_entropy(lg, t, ignore_index=ignore)
+        return lambda lg, t: robust_cross_entropy(lg, t, ignore_index=ignore,
+                                                  group=g)
     if kind == "dice":
         def dice(lg, t):
             if ignore is None:
                 return soft_dice_loss(lg, t, batch_dice=batch_dice,
-                                      do_bg=False)
+                                      do_bg=False, group=g)
             mask = t != ignore
             return soft_dice_loss(lg, torch.where(mask, t, torch.zeros_like(
-                t)), loss_mask=mask, batch_dice=batch_dice, do_bg=False)
+                t)), loss_mask=mask, batch_dice=batch_dice, do_bg=False,
+                group=g)
         return dice
     if kind == "topk10":
         return lambda lg, t: topk_cross_entropy(lg, t, 10.0,
-                                                ignore_index=ignore)
+                                                ignore_index=ignore, group=g)
     if kind == "topk10_ls01":
         return lambda lg, t: topk_cross_entropy(lg, t, 10.0,
                                                 ignore_index=ignore,
-                                                label_smoothing=0.1)
+                                                label_smoothing=0.1, group=g)
     if kind == "dc_topk10":
         return lambda lg, t: (
-            soft_dice_loss(lg, t, batch_dice=batch_dice, do_bg=False)
-            + topk_cross_entropy(lg, t, 10.0, ignore_index=ignore))
+            soft_dice_loss(lg, t, batch_dice=batch_dice, do_bg=False, group=g)
+            + topk_cross_entropy(lg, t, 10.0, ignore_index=ignore, group=g))
     if kind == "dc_ce_nosmooth":
         return lambda lg, t: dc_and_ce_loss(lg, t, batch_dice=batch_dice,
-                                            ignore_label=ignore, smooth=0.0)
+                                            ignore_label=ignore, smooth=0.0,
+                                            group=g)
     raise ValueError(f"unknown loss kind {kind!r} (one of {LOSS_KINDS})")
 
 

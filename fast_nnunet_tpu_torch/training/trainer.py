@@ -33,8 +33,19 @@ configuration>`` and the augmenters move them into the data one-hot
 (corrupted in training). A stage with a ``next_stage`` leaves, in its final
 validation, each case's prediction on the next stage's preprocessed grid
 there, when that stage is preprocessed (``3d_lowres`` on fold ``all``
-leaves one per case). Not ported (``NotImplementedError``): multi-GPU and
-multi-host training.
+leaves one per case).
+
+Data parallel, one rank per GPU (parallel/distributed.py ``spawn``; the
+``-num_gpus`` / ``-num_hosts`` paths of run/run_training.py): a trainer
+made inside a process group trains on the world's global batch — the
+plans' batch size, which must divide by the world size, as the JAX trainer
+asserts. Each rank samples its slice with its share of the foreground
+oversampling and seed ``12345 + 7919 * rank`` (JAX's multi-host rule), the
+step is the JAX step on the global batch (training/train_step.py), the
+logged losses and pseudo-Dice are global, and the final validation splits
+the cases ``val_keys[rank::world]``. Only rank 0 writes logs, plots,
+``debug.json``, checkpoints and the validation summary; every rank loads
+a checkpoint onto its own card.
 """
 import os
 import sys
@@ -50,7 +61,10 @@ from ..core.labels import determine_num_input_channels
 from ..core.plans import PlansManager
 from ..device import resolve_device
 from ..models.factory import build_network_from_arch_dict
+from ..models.blocks import sync_batch_stats
 from ..models.unet import init_he_normal_, params_from_jax, params_to_jax
+from ..parallel import distributed as pdist
+from ..parallel.collectives import broadcast_
 from ..utils.io import isfile, join, load_json, maybe_mkdir_p, save_json
 from ..utils.misc import generate_crossval_split
 from .augment import (TrainingAugmenter, ValidationAugmenter,
@@ -105,6 +119,11 @@ class NNUNetTrainer:
         self._best_ema = None
         self.logger = NNUNetLogger()
         self.was_initialized = False
+        # data parallel: the process group's ranks share the global batch;
+        # only rank 0 writes files
+        self.rank, self.world_size = pdist.rank(), pdist.world_size()
+        self.group = pdist.data_group()
+        self.is_main_process = self.rank == 0
 
         self.preprocessed_dataset_folder_base = None
         self.output_folder_base = None
@@ -152,6 +171,8 @@ class NNUNetTrainer:
 
     def print_to_log_file(self, *args, also_print_to_console: bool = True
                           ) -> None:
+        if not self.is_main_process:
+            return
         msg = " ".join(str(a) for a in args)
         stamped = f"{datetime.now().isoformat(timespec='seconds')}: {msg}"
         if self.output_folder is not None:
@@ -180,22 +201,30 @@ class NNUNetTrainer:
     def initialize(self) -> None:
         if self.was_initialized:
             raise RuntimeError("initialize() called twice")
+        bs = self.configuration_manager.batch_size
+        if bs % self.world_size:
+            raise ValueError(
+                f"data-parallel training needs batch_size ({bs}) divisible "
+                f"by the number of ranks ({self.world_size}): adjust the "
+                "plans")
         self.num_input_channels = determine_num_input_channels(
             self.plans_manager, self.configuration_manager, self.dataset_json)
         net = self.build_network_architecture()
         self.init_network_weights(net, 12345 + self.fold
                                   if isinstance(self.fold, int) else 0)
-        self.network = net.to(self.device)
+        self.network = sync_batch_stats(net.to(self.device), self.group)
+        for t in self.network.state_dict().values():  # replicas start equal
+            broadcast_(t, self.group)
         total_steps = self.num_epochs * self.num_iterations_per_epoch
         self.optimizer = self.configure_optimizer(total_steps)
         step_kwargs = self._step_kwargs()
         self.train_step = make_train_step(self.network, self.optimizer,
                                           loss_fn=self._train_loss_fn(),
                                           skip_nonfinite=self.skip_nonfinite,
-                                          **step_kwargs)
+                                          group=self.group, **step_kwargs)
         self.val_step = make_val_step(
             self.network, num_heads=self.label_manager.num_segmentation_heads,
-            **step_kwargs)
+            group=self.group, **step_kwargs)
         self.was_initialized = True
 
     def init_network_weights(self, net, seed: int) -> None:
@@ -218,7 +247,8 @@ class NNUNetTrainer:
         lm = self.label_manager
         return loss_of_kind(
             self.loss_kind, batch_dice=self.configuration_manager.batch_dice,
-            ignore_label=lm.ignore_label if lm.has_ignore_label else None)
+            ignore_label=lm.ignore_label if lm.has_ignore_label else None,
+            group=self.group)
 
     def build_network_architecture(self):
         """The training form: float32 master parameters, one-pass
@@ -257,7 +287,8 @@ class NNUNetTrainer:
                            "splits_final.json")
         if not isfile(splits_file):
             splits = generate_crossval_split(keys, seed=12345, n_splits=5)
-            save_json(splits, splits_file)
+            if self.is_main_process:  # the same seeded split on every rank
+                save_json(splits, splits_file)
         else:
             splits = load_json(splits_file)
         if self.fold < len(splits):
@@ -297,6 +328,11 @@ class NNUNetTrainer:
 
         bs = self.configuration_manager.batch_size
         oversample = self.oversample_foreground_percent
+        if self.world_size > 1:
+            # each rank samples its slice of the global batch, with the
+            # oversample fraction of its slice of the global fg-forcing rule
+            bs, oversample = pdist.local_batch_and_oversample(
+                bs, oversample, self.rank, self.world_size)
         prev = self.folder_with_segs_from_previous_stage
         sampler_tr = PatchSampler(
             ds_tr, bs, initial_patch, patch_size, oversample,
@@ -308,7 +344,7 @@ class NNUNetTrainer:
                                    prev_stage_folder=prev)
         n_proc = get_allowed_n_proc_DA()
         pin = self.device.type == "cuda"
-        seed = 12345
+        seed = 12345 + 7919 * self.rank
         self.dataloader_train = AsyncBatchIterator(
             sampler_tr, num_workers=n_proc, seed=seed, pin_memory=pin)
         self.dataloader_val = AsyncBatchIterator(
@@ -392,6 +428,9 @@ class NNUNetTrainer:
     def on_train_start(self) -> None:
         if not self.was_initialized:
             self.initialize()
+        if not self.is_main_process:
+            self.get_dataloaders()
+            return
         maybe_mkdir_p(self.output_folder)
         save_json(self.plans_manager.plans,
                   join(self.output_folder_base, "plans.json"), sort_keys=False)
@@ -411,7 +450,7 @@ class NNUNetTrainer:
                 self.oversample_foreground_percent,
             "enable_deep_supervision": self.enable_deep_supervision,
             "compute_dtype": str(self.compute_dtype),
-            "remat": self._use_remat(),
+            "remat": self._use_remat(), "world_size": self.world_size,
         })
         save_json(debug, join(self.output_folder, "debug.json"),
                   sort_keys=False)
@@ -438,13 +477,13 @@ class NNUNetTrainer:
         ema = self.logger.logging["ema_fg_dice"][epoch]
         if self._best_ema is None or ema > self._best_ema:
             self._best_ema = ema
-            if not self.disable_checkpointing:
+            if self._writes_checkpoints:
                 self.save_checkpoint(join(self.output_folder,
                                           "checkpoint_best.fnnx"))
             self.print_to_log_file(
                 f"New best EMA pseudo Dice: {np.round(ema, 4)}")
         if (epoch + 1) % self.save_every == 0 and epoch + 1 != self.num_epochs \
-                and not self.disable_checkpointing:
+                and self._writes_checkpoints:
             self.save_checkpoint(join(self.output_folder,
                                       "checkpoint_latest.fnnx"))
         lg = self.logger.logging
@@ -453,13 +492,19 @@ class NNUNetTrainer:
             f"val {lg['val_losses'][epoch]:.4f} pseudo-dice "
             f"{np.round(lg['mean_fg_dice'][epoch], 4)} (EMA "
             f"{np.round(ema, 4)})")
-        try:
-            self.logger.plot_progress_png(self.output_folder)
-        except Exception:
-            pass  # no matplotlib: no plot
+        if self.is_main_process:
+            try:
+                self.logger.plot_progress_png(self.output_folder)
+            except Exception:
+                pass  # no matplotlib: no plot
+
+    @property
+    def _writes_checkpoints(self) -> bool:
+        """Rank 0 writes the checkpoints, unless checkpointing is off."""
+        return self.is_main_process and not self.disable_checkpointing
 
     def on_train_end(self) -> None:
-        if not self.disable_checkpointing:
+        if self._writes_checkpoints:
             self.save_checkpoint(join(self.output_folder,
                                       "checkpoint_final.fnnx"))
             latest = join(self.output_folder, "checkpoint_latest.fnnx")
@@ -541,6 +586,9 @@ class NNUNetTrainer:
         validation_output_folder = join(self.output_folder, "validation")
         maybe_mkdir_p(validation_output_folder)
         _, val_keys = self.do_split()
+        # each rank predicts its share of the cases; rank 0 aggregates
+        # after the barrier
+        val_keys = val_keys[self.rank::self.world_size]
         ds_val = infer_dataset_class(self.preprocessed_dataset_folder)(
             self.preprocessed_dataset_folder, val_keys)
         engine = SlidingWindowEngine(
@@ -583,6 +631,9 @@ class NNUNetTrainer:
                                   self.configuration_manager, props,
                                   self.dataset_json)
 
+        pdist.barrier()
+        if not self.is_main_process:
+            return {}
         gt_folder = join(get_raw_folder(), self.plans_manager.dataset_name,
                          "labelsTr")
         lm = self.label_manager

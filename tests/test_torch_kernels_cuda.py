@@ -682,3 +682,87 @@ def test_streamed_host_route_launches_kernels_from_pinned_buffers(
     assert pinned["strips"] and all(pinned["strips"])
     assert pinned["rows"] and all(pinned["rows"])
     assert (masks["cuda"] == masks["cpu"]).mean() >= 0.999
+
+
+# ------------------------------------------- slab-parallel sweeps (sharded)
+@pytest.mark.parametrize("acc_dtype", ["bfloat16", "float32"])
+def test_kernels_c_b_d_at_slab_local_origins(cuda_device, acc_dtype):
+    """inference/sharded.py drives kernel C on a p0/2-row view of the slab
+    accumulator at a tile's half-res row, kernel B on the owned rows, and
+    kernel D with slab-local x origins on an (owned + halo)-row
+    accumulator: each against its plain version on the same views."""
+    tdt = getattr(torch, acc_dtype)
+    rng = np.random.RandomState(21)
+    B, p0h, pyh, pzh, Kc, F, Yh, Zh, ext_h, row0 = 3, 4, 8, 16, 5, 4, 24, \
+        40, 13, 6
+    slab = torch.from_numpy(rng.randn(ext_h, Yh, Zh, 8 * Kc).astype(
+        np.float32)).to(tdt)
+    feats = torch.from_numpy(rng.randn(B, 8 * F, p0h, pyh, pzh).astype(
+        np.float32)).bfloat16()
+    g = torch.from_numpy(np.abs(rng.randn(p0h, pyh, pzh, 8)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.randn(8, F, Kc) * 0.3).astype(np.float32)
+                         ).bfloat16()
+    b = torch.from_numpy((rng.randn(8 * Kc) * 0.1).astype(np.float32))
+    coords = np.array([[0, 0], [4, 8], [16, 24]], np.int32)
+    valid = np.ones(3, np.float32)
+    ref = slab.clone()
+    s2d_accumulate_plain(ref[row0:row0 + p0h], feats, g, w, b, coords, valid)
+    got = slab.to(cuda_device)
+    s2d_accumulate(got[row0:row0 + p0h], feats.to(cuda_device),
+                   g.to(cuda_device), w.to(cuda_device), b.to(cuda_device),
+                   coords, valid)
+    assert torch.equal(got.cpu(), ref)
+    owned_h = 8
+    assert torch.equal(grouped_argmax(got[:owned_h], Kc, owned_h).cpu(),
+                       grouped_argmax_plain(ref[:owned_h], Kc, owned_h))
+
+    px, py, pz, C, owned = 8, 16, 16, 8, 12
+    acc = torch.from_numpy(rng.randn(owned + px, 32, 40, C).astype(
+        np.float32)).to(tdt)
+    lg = torch.from_numpy(rng.randn(2, px, py, pz, C).astype(np.float32)
+                          ).to(tdt)
+    gf = torch.from_numpy(np.abs(rng.randn(px, py, pz * C)).astype(
+        np.float32)).to(tdt)
+    xy = np.array([[owned - 2, 0, 8], [owned - 2, 16, 24]], np.int32)
+    ref = fused_scatter_accumulate_plain(acc.clone(), lg, gf, xy, 2)
+    got = fused_scatter_accumulate(acc.to(cuda_device), lg.to(cuda_device),
+                                   gf.to(cuda_device), xy, 2).cpu()
+    assert torch.equal(got, ref)
+
+
+def test_sharded_s2d_sweep_nccl_world_1_bit_equal(cuda_device):
+    """The s2d slab sweep on one NCCL rank (the world the one-card machine
+    allows) is the single-card sweep, kernels A, B and C launched."""
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.parallel import spawn
+
+    from . import torch_parallel_ranks as ranks
+    tree = random_plain_params(ranks.S2D_ARCH, 1, ranks.K, 2)
+    vol = np.random.RandomState(0).rand(1, 40, 24, 24).astype(np.float32)
+    (single, multi, n), = spawn(ranks.sweep_pair, 1, device="cuda",
+                                backend="nccl",
+                                args=("s2d", 4, tree, vol, False))
+    np.testing.assert_array_equal(multi, single)
+    assert n[0] > 0 and n[1] > 0 and n[2] > 0
+
+
+def test_sharded_sweeps_two_gloo_ranks_on_one_card(cuda_device):
+    """Two gloo ranks sharing the card (host-staged halo rows): the plain
+    sweep with kernel D and the s2d sweep with kernels C and B, in the
+    wavefront mode, equal their single-card sweeps bit for bit."""
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.parallel import spawn
+
+    from . import torch_parallel_ranks as ranks
+    vol = np.random.RandomState(0).rand(1, 40, 24, 24).astype(np.float32)
+    for kind, arch in (("fused", ranks.SHARD_ARCH), ("s2d", ranks.S2D_ARCH)):
+        tree = random_plain_params(arch, 1, ranks.K, 2)
+        out = spawn(ranks.sweep_pair, 2, device="cuda", backend="gloo",
+                    args=(kind, 4, tree, vol, True))
+        single, multi, n = out[0]
+        np.testing.assert_array_equal(multi, single)
+        assert out[1][1] is None
+        for r in out:
+            assert (r[2][3] > 0) if kind == "fused" else \
+                (r[2][1] > 0 and r[2][2] > 0)

@@ -154,8 +154,9 @@ def test_chip_smoke_frozen_resenc_l_topology_is_the_planners(pipeline_env):
 
 @pytest.fixture()
 def cascade_env(tmp_path, monkeypatch):
-    """chip_smoke.py phase 13's dataset as a fingerprint: 5 CT cases of
-    CASCADE_CASE voxels at CASCADE_SPACING, 61 labels, nothing cropped."""
+    """chip_smoke.py phase 13's dataset as a fingerprint: CASCADE_N_TRAIN
+    CT cases of CASCADE_CASE voxels at CASCADE_SPACING, 61 labels, nothing
+    cropped."""
     ds = chip_smoke.CASCADE_DS
     raw = tmp_path / "raw" / ds
     pre = tmp_path / "pre" / ds
@@ -164,7 +165,7 @@ def cascade_env(tmp_path, monkeypatch):
     monkeypatch.setenv("nnUNet_raw", str(tmp_path / "raw"))
     monkeypatch.setenv("nnUNet_preprocessed", str(tmp_path / "pre"))
     monkeypatch.setenv("nnUNet_results", str(tmp_path / "res"))
-    n = chip_smoke.PIPELINE_N_TRAIN
+    n = chip_smoke.CASCADE_N_TRAIN
     dj = {"channel_names": {"0": "CT"},
           "labels": {("background" if i == 0 else f"bone_{i}"): i
                      for i in range(chip_smoke.TRAIN_K)},

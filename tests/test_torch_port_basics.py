@@ -36,7 +36,8 @@ for n in ("export.export_model", "fast_inference.inferencer",
           "imageio.mha", "imageio.tiff", "imageio.natural_image",
           "imageio.dicom", "dataset_conversion.convert_msd",
           "dataset_conversion.converters", "models.primus",
-          "training.primus_trainers"):
+          "training.primus_trainers", "parallel", "parallel.distributed",
+          "parallel.mesh", "parallel.collectives", "inference.sharded"):
     assert pkg.__name__ + "." + n in names, n
 """
 
@@ -49,14 +50,15 @@ def test_port_imports_no_jax():
     modules count too, and the export, fast-inference, JHU, data-iterator,
     examples and libdeflate modules, the host library's binding, and the
     case stores, readers, weight import and dataset converters, and the
-    Primus network and trainers; zstandard,
+    Primus network and trainers, and the multi-GPU layer (parallel/*,
+    inference/sharded.py); zstandard,
     msgpack, blosc2 and PIL stay unimported until a function needs them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 102, res.stdout
+    assert n_modules >= 107, res.stdout
 
 
 def test_resolve_device_never_falls_back():

@@ -259,6 +259,6 @@ def test_entry_points_default_to_the_card(env, short):
         resenc_distillation_train_entry
     with pytest.raises(RuntimeError, match="cuda"):
         resenc_distillation_train_entry(["-d", DS, "-t", pre, "-tf", "0"])
-    with pytest.raises(NotImplementedError):
-        run_training_entry([DS, "3d_fullres", "0", "-device", "cpu",
-                            "-num_gpus", "2"])
+    # -num_gpus spawns one rank per card: without a card it raises too
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_training_entry([DS, "3d_fullres", "0", "-num_gpus", "2"])
