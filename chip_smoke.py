@@ -253,6 +253,40 @@ the card. Run from the repository root:
    global batch (1e-5, running averages included). Sweep seconds and peak
    memory per rank beside the single card's (a record: the ranks share
    one card). One ``{"multi": ...}`` line.
+19. The JAX package's last modules. A worker process (``chip_smoke.py
+   --phase19-build``), started after phase 3 at a lower priority, does
+   the phase's host work while the phases after phase 3 run (15, 4-5, 7-9,
+   6, 10, then 11-12 if it is still compiling): it builds the native
+   engine (``ops._build.engine_binary()``), compiles phase 2's student at
+   its tile batch into a fresh package cache
+   (``SlidingWindowEngine.fold_forward``, inference/aot.py) and exports
+   phase 14's student with ``--aoti`` (bf16, B = 8) on the card, unvalidated.
+   Its only work on the card is what compiling needs (weights uploaded,
+   Inductor's constant folding and compile-time benchmarks, one forward of
+   8 zero tiles); all that phase 19 times on the card runs in this process
+   after joining it. After phases 11-12: (a, ``aot:``) the worker's compile
+   and export seconds and the package's MB; ``TurboPipeline`` on the
+   device route with that ``aot_cache`` on phase 2's CT in this process, a
+   fresh interpreter to the package: compiling switched off, the package
+   loaded (its mtime unchanged, the log says loaded); its launches per CT
+   equal phase 2's (A 180, B 8, C 15: kernel A is not compiled away) and
+   its mask phase 2's eager mask (>= 0.999); warm s/CT eager and aot in
+   turns (a record). (b, ``trace:``) one warm CT of phase 2 inside
+   ``utils.profiling.maybe_trace``, attributed by
+   ``utils.trace_analysis.attribute_trace``: kernels A, B and C by symbol
+   with phase 2's launch counts, the busy time beside the CUDA-event phase
+   sum, the idle share; then phase 6's small fused plain sweep in a second
+   trace, kernel D by symbol with its wrapper's count. (c, ``engine:``,
+   after phase 14) the package validated against ``model.pt2`` run eagerly
+   (1e-2), then the port's C++ engine with ``--aoti`` on a 192 x 192 x 160
+   CT at the INI's target spacing against the port's Python engine over
+   the same INI pipeline on ``model.pt2`` (the eager network, >= 0.995) and
+   on the package (>= 0.995); its seconds beside the Python engine's and
+   phase 14's ``/predict``. (d, ``share:``, in phase 11's root after phase
+   11) the planned teacher's fold 0 zipped with
+   ``fast_nnunet_export_model_to_zip_torch`` and installed with
+   ``fast_nnunet_install_pretrained_model_from_zip_torch`` into a fresh
+   results root: every file equal byte for byte.
 
 Prints the kernels JSON on its own line (every row with ``bound_share`` =
 bound_ms / ms), then last ``{"ok": true, "device": {...}}``. Any failure
@@ -504,12 +538,9 @@ def main() -> int:
                                                        TurboPipeline)
     from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
                                                   random_plain_params)
-    from fast_nnunet_tpu_torch.models.students import \
-        build_student_arch_kwargs
     from fast_nnunet_tpu_torch.ops import _build
     from fast_nnunet_tpu_torch.ops import finalize as kb
     from fast_nnunet_tpu_torch.ops import s2d_accumulate as kc
-    from fast_nnunet_tpu_torch.ops import stats as ka
     from fast_nnunet_tpu_torch.utils.synthetic_ct import make_synthetic_ct
 
     t_start = time.perf_counter()
@@ -538,24 +569,9 @@ def main() -> int:
                   f"{v.get('stack')} B stack")
 
     # ------------------------------------------------------------ main path
-    ini = os.path.join(HERE, "engine", "config", "fast_nnunet_bone_turbo.ini")
-    cfg = TurboConfig.from_ini(ini)
-    cp = configparser.ConfigParser(inline_comment_prefixes=("#", ";"))
-    cp.read(ini)
-    inf = cp["inference"]
-    K = cfg.num_classes
-    arch = build_student_arch_kwargs(TEACHER_ARCH, 2)
-    net = make_s2d_engine_net(arch, K, 1, compute_dtype=torch.bfloat16)
-    net.to(dev)
-    tree = net.convert_params(random_plain_params(arch, 1, K, seed=0))
-    engine = SlidingWindowEngine(
-        net, cfg.patch_size, K, tile_step_size=cfg.step_size,
-        use_gaussian=cfg.use_gaussian, compute_dtype=torch.bfloat16,
-        sweep_acc_dtype=torch.bfloat16, shape_bucket=32,
-        tile_batch=inf.getint("tile_batch", 8), device=dev)
-    pipe = TurboPipeline(engine, cfg,
-                         air_skip=inf.getboolean("skip_air_tiles", True),
-                         air_margin_hu=inf.getfloat("air_margin_hu", 200.0))
+    make_pipe, tree, p2 = phase2_pipeline(torch, dev)
+    net, cfg, K, arch = p2["net"], p2["cfg"], p2["K"], p2["arch"]
+    engine, pipe = make_pipe("")
     t0 = time.perf_counter()
     ct, spacing = make_synthetic_ct((512, 512, 500), (0.8, 0.8, 1.0), seed=0)
     print(f"main: student features {arch['features_per_stage']}, {K} "
@@ -569,9 +585,7 @@ def main() -> int:
     print(f"main: warm-up run {time.perf_counter() - t0:.3f} s (kernel "
           f"inputs captured from it)")
 
-    kernels = {"spatial_sum_sumsq": ka.spatial_sum_sumsq,
-               "grouped_argmax": kb.grouped_argmax,
-               "s2d_accumulate": kc.s2d_accumulate}
+    kernels = phase2_kernels()
     for fn in kernels.values():
         fn.launches = 0
     engine.timer = PhaseTimer()
@@ -609,14 +623,16 @@ def main() -> int:
     del cap
     torch.cuda.empty_cache()
     mark("build, s2d main path and its kernels (phases 1-3)")
+    worker = start_phase19_worker()  # joined by phase 19
 
     # ------------------------------------------- the host route, folds
     tree2 = net.convert_params(random_plain_params(arch, 1, K, seed=1))
     host_route_path(torch, pipe, tree, tree2, ct, spacing, seg, wall, phases,
                     kernels)
-    del engine, pipe, net
-    torch.cuda.empty_cache()
     mark("host route, host revert and folds (phase 15)")
+
+    del engine, pipe
+    torch.cuda.empty_cache()
 
     # ------------------------------------------- plain full-res path, kernel D
     cap_d, launches_d, seg_d = plain_main_path(torch, dev, engine_module, K,
@@ -675,19 +691,76 @@ def main() -> int:
     pipeline_path(torch, dev, a_row)
     mark("raw dataset workflow and ResEnc presets (phases 11-12)")
 
+    # ------------------------------------------- package cache and trace
+    built = aot_path(torch, dev, make_pipe, tree, ct, spacing, seg, launches,
+                     wall, kernels, worker)
+    del make_pipe, net, ct, seg
+    torch.cuda.empty_cache()
+    mark("package cache and trace attribution (phase 19 a-b)")
+
     # ------------------------------------------- 2d, lowres and the cascade
     cascade_path(torch, dev, a_row)
     mark("2d and 3d_lowres -> 3d_cascade_fullres (phase 13)")
 
     # ------------------------------------------- export and fast inference
-    fast_inference_path(torch, dev)
+    fast = fast_inference_path(torch, dev)
     mark("export and the fast-inference module (phase 14)")
+
+    # ------------------------------------------- the native engine
+    native_engine_path(torch, dev, worker, built, fast["walls_s"]["predict"])
+    mark("the native artifact and the C++ engine (phase 19 c)")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase2_pipeline(torch, dev):
+    """Phase 2's student and a factory of its pipeline: (make_pipe, tree,
+    {"net", "cfg", "K", "arch"}); ``make_pipe(aot_cache)`` -> (engine,
+    TurboPipeline) with the engine INI's settings on the shared network
+    (``aot_cache`` "" is eager, a directory the package cache)."""
+    from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
+    from fast_nnunet_tpu_torch.inference.turbo import (TurboConfig,
+                                                       TurboPipeline)
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  random_plain_params)
+    from fast_nnunet_tpu_torch.models.students import \
+        build_student_arch_kwargs
+    ini = os.path.join(HERE, "engine", "config", "fast_nnunet_bone_turbo.ini")
+    cfg = TurboConfig.from_ini(ini)
+    cp = configparser.ConfigParser(inline_comment_prefixes=("#", ";"))
+    cp.read(ini)
+    inf = cp["inference"]
+    K = cfg.num_classes
+    arch = build_student_arch_kwargs(TEACHER_ARCH, 2)
+    net = make_s2d_engine_net(arch, K, 1, compute_dtype=torch.bfloat16)
+    net.to(dev)
+    tree = net.convert_params(random_plain_params(arch, 1, K, seed=0))
+
+    def make_pipe(aot_cache=""):
+        engine = SlidingWindowEngine(
+            net, cfg.patch_size, K, tile_step_size=cfg.step_size,
+            use_gaussian=cfg.use_gaussian, compute_dtype=torch.bfloat16,
+            sweep_acc_dtype=torch.bfloat16, shape_bucket=32,
+            tile_batch=inf.getint("tile_batch", 8), device=dev,
+            aot_cache=aot_cache)
+        return engine, TurboPipeline(
+            engine, cfg, air_skip=inf.getboolean("skip_air_tiles", True),
+            air_margin_hu=inf.getfloat("air_margin_hu", 200.0))
+    return make_pipe, tree, {"net": net, "cfg": cfg, "K": K, "arch": arch}
+
+
+def phase2_kernels():
+    """The s2d path's kernel wrappers by name (their ``launches`` count)."""
+    from fast_nnunet_tpu_torch.ops import finalize as kb
+    from fast_nnunet_tpu_torch.ops import s2d_accumulate as kc
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    return {"spatial_sum_sumsq": ka.spatial_sum_sumsq,
+            "grouped_argmax": kb.grouped_argmax,
+            "s2d_accumulate": kc.s2d_accumulate}
 
 
 def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
@@ -2063,6 +2136,7 @@ def pipeline_path(torch, dev, a_row, iters=10, warm=3):
     os.environ.update(env)
     try:
         fed_npy = _pipeline(torch, dev, a_row, root, iters, warm)
+        share_path(torch, env["nnUNet_results"])
         resenc_path(torch, dev, a_row)
         formats_path(torch, dev, a_row, fed_npy)
         primus_path(torch, dev)
@@ -4005,6 +4079,493 @@ def _fast_inference(torch, dev, root, n_slices):
 
 
 
+# ------------------------------------------------------------------ aot
+ENGINE_CT = (192, 192, 160)   # phase 19(c): the native engine's CT (i, j, k)
+
+
+def _wrap_timed(module, name, log):
+    """Replace ``module.name`` by a shim that appends its seconds to
+    ``log``; returns the original (the caller restores it)."""
+    real = getattr(module, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            log.append(time.perf_counter() - t0)
+    setattr(module, name, timed)
+    return real
+
+
+def start_phase19_worker():
+    """Start phase 19's worker (``chip_smoke.py --phase19-build ROOT``) in
+    a process of its own at a lower priority, in a temporary root. It
+    does phase 19's host work, which then overlaps the phases that run
+    meanwhile: the native engine's build, the AOTInductor compile of phase
+    2's student into the package cache ROOT/cache and the ``--aoti`` export
+    of phase 14's student (:func:`phase19_build_main`). Its work on the
+    card is what those compiles need: the weights uploaded, Inductor's
+    constant folding and compile-time benchmarks, and one forward of 8
+    zero tiles through the new package. Everything timed on the card in
+    phase 19 (CTs, the engine, the Python sweeps) runs in the main process
+    after it has joined the worker. Returns (process, root); the process
+    is killed at exit if it still runs."""
+    import atexit
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_phase19_")
+    log = open(os.path.join(root, "worker.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phase19-build", root], stdout=log,
+                            stderr=subprocess.STDOUT,
+                            preexec_fn=lambda: os.nice(10))
+    log.close()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, root
+
+
+def phase19_build_main(argv):
+    """``chip_smoke.py --phase19-build ROOT``: (1) the kernels and the native
+    engine built; (2) phase 2's student (its pipeline's engine, fold 0, the
+    sweep's tile batch) compiled into the package cache ROOT/cache through
+    ``SlidingWindowEngine.fold_forward``; (3) phase 14's student written to
+    ROOT/model and exported with ``aoti=True`` (bf16, B = 8) on the card
+    into ROOT/export, its validation left to phase 19(c). Results go to
+    ROOT/build.json."""
+    import torch
+    sys.path.insert(0, HERE)
+    from fast_nnunet_tpu_torch.export.export_model import \
+        export_model_folder_to_artifact
+    from fast_nnunet_tpu_torch.inference import aot
+    from fast_nnunet_tpu_torch.ops import _build
+    (root,) = argv
+    dev = torch.device("cuda")
+    out = {}
+    t0 = time.perf_counter()
+    _build.library()
+    _build.engine_binary()
+    out["engine_build_s"] = time.perf_counter() - t0
+
+    make_pipe, tree, _ = phase2_pipeline(torch, dev)
+    engine, _ = make_pipe(os.path.join(root, "cache"))
+    engine.load_params(tree)
+    compile_s, export_s = [], []
+    _wrap_timed(aot, "compile_package", compile_s)
+    _wrap_timed(aot, "export_program", export_s)
+    tiles = torch.zeros((engine.tile_batch, 1, *engine.patch_size),
+                        dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        engine.fold_forward(0, tiles, return_features=True)
+    out.update(aot_export_s=sum(export_s), aot_compile_s=sum(compile_s),
+               aot_compiles=len(compile_s))
+    del engine, tiles
+    torch.cuda.empty_cache()
+
+    model = os.path.join(root, "model")
+    write_student_model_folder(model)
+    st = {}
+    t0 = time.perf_counter()
+    export_model_folder_to_artifact(model, 0, os.path.join(root, "export"),
+                                    batch_size=8, dtype="bfloat16",
+                                    device=dev, stats=st, aoti=True,
+                                    validate=False)
+    out["export"] = dict(st, wall_s=time.perf_counter() - t0)
+    with open(os.path.join(root, "build.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def join_phase19_worker(worker, timeout=1200):
+    """Wait for the worker; returns (its build.json, seconds waited)."""
+    proc, root = worker
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=timeout)
+    waited = time.perf_counter() - t0
+    with open(os.path.join(root, "worker.log")) as f:
+        log = f.read()
+    check(rc == 0, f"phase 19's worker failed (exit {rc}):\n" + log[-5000:])
+    with open(os.path.join(root, "build.json")) as f:
+        return json.load(f), waited
+
+
+def aot_path(torch, dev, make_pipe, tree, ct, spacing, seg_eager, launches,
+             wall_eager, kernels, worker):
+    """Phase 19 (a, b; ``aot:``, ``trace:`` lines): the worker joined, its
+    package cache loaded here on phase 2's route, and a trace of phase 2's
+    CT attributed by utils/trace_analysis.py (docstring step 19). Returns
+    the worker's results for phase 19(c)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="fnn_chip_smoke_aot_")
+    try:
+        built, waited = join_phase19_worker(worker)
+        out = {"aot": _aot_cache(torch, make_pipe, tree, ct, spacing,
+                                 seg_eager, launches, wall_eager, kernels,
+                                 worker[1], built, waited)}
+        torch.cuda.empty_cache()
+        out["trace"] = _trace(torch, make_pipe, tree, ct, spacing, launches,
+                              kernels, root)
+        print(json.dumps({"aot_phase": out}))
+        return built
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _aot_cache(torch, make_pipe, tree, ct, spacing, seg_eager, launches,
+               wall_eager, kernels, worker_root, built, waited):
+    """Phase 19(a). The package was compiled by the worker, so this process
+    is a fresh interpreter to it: compiling is switched off, and the load
+    must leave the package's mtime unchanged and log ``loaded ... no
+    compile``."""
+    import logging
+    from fast_nnunet_tpu_torch.inference import aot
+
+    cache = os.path.join(worker_root, "cache")
+    t_phase = time.perf_counter()
+    pkgs = sorted(f for f in os.listdir(cache) if f.endswith(".pt2"))
+    check(built["aot_compiles"] == 1 and len(pkgs) == 1,
+          f"aot: the worker made {built['aot_compiles']} compiles, "
+          f"packages {pkgs}")
+    pkg = os.path.join(cache, pkgs[0])
+    mb = os.path.getsize(pkg) / 2**20
+    mode = oct(os.stat(cache).st_mode & 0o777)
+    print(f"aot: the worker process (a fresh aot_cache, phase 2's student "
+          f"at its tile batch; started after phase 3 at a lower priority, "
+          f"{waited:.3f} s waited for here): export "
+          f"{built['aot_export_s']:.3f} s, AOTInductor compile "
+          f"{built['aot_compile_s']:.3f} s, package {pkgs[0]} {mb:.1f} MB "
+          f"(cache dir {mode})")
+    check(mode == "0o700", f"aot cache dir mode {mode}")
+    _, pipe = make_pipe(cache)
+    eager_pipe = make_pipe("")[1]
+    messages, compiles, export_s, load_s = [], [], [], []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    def no_compile(*a, **k):
+        compiles.append(1)
+        raise SmokeFailure("aot: this process tried to compile")
+    keep, level = Keep(), aot.logger.level
+    aot.logger.addHandler(keep)
+    aot.logger.setLevel(logging.INFO)
+    real_c, aot.compile_package = aot.compile_package, no_compile
+    real_e = _wrap_timed(aot, "export_program", export_s)
+    real_l = _wrap_timed(aot, "load_package", load_s)
+    mtime = os.stat(pkg).st_mtime_ns
+    try:
+        t0 = time.perf_counter()
+        seg0 = pipe.predict_volume(tree, ct, spacing)
+        first = time.perf_counter() - t0
+    finally:
+        aot.compile_package, aot.export_program = real_c, real_e
+        aot.load_package = real_l
+        aot.logger.removeHandler(keep)
+        aot.logger.setLevel(level)
+    logged = any("loaded" in m and "no compile" in m for m in messages)
+    same = os.stat(pkg).st_mtime_ns == mtime
+    print(f"aot: TurboPipeline (device route) on that cache in this "
+          f"process, a fresh interpreter to the package (compiling switched "
+          f"off): first CT {first:.3f} s with export {sum(export_s):.3f} s "
+          f"and load {sum(load_s):.3f} s, {len(compiles)} compiles, log says "
+          f"loaded: {logged}, package mtime unchanged: {same}")
+    check(not compiles and len(load_s) == 1 and logged and same,
+          f"aot: this process compiled {len(compiles)} times, loaded "
+          f"{len(load_s)}, logged {logged}, mtime unchanged {same}")
+
+    for fn in kernels.values():
+        fn.launches = 0
+    seg = pipe.predict_volume(tree, ct, spacing)
+    got = {name: fn.launches for name, fn in kernels.items()}
+    agree = float((seg == seg_eager).mean())
+    repeat = float((seg == seg0).mean())
+    print(f"aot: launches per CT {json.dumps(got)} (eager {json.dumps(launches)}"
+          f"); mask vs phase 2's eager mask: agreement {agree:.6f}; vs the "
+          f"first aot run {repeat:.6f}")
+    check(got == launches, f"aot route launched {got}, eager {launches}: a "
+          "kernel was compiled away or added")
+    check(agree >= 0.999, f"aot vs eager mask agreement {agree} < 0.999")
+    check(repeat >= 0.999, f"aot first vs second CT agreement {repeat}")
+
+    walls = {"eager": [], "aot": []}
+    for name in ("eager", "aot", "aot", "eager"):
+        p = eager_pipe if name == "eager" else pipe
+        t0 = time.perf_counter()
+        p.predict_volume(tree, ct, spacing)
+        walls[name].append(time.perf_counter() - t0)
+    print(f"aot: warm seconds per CT, in turns (eager, aot, aot, eager): "
+          f"eager {[round(w, 4) for w in walls['eager']]}, aot "
+          f"{[round(w, 4) for w in walls['aot']]} (phase 2's eager "
+          f"{[round(w, 4) for w in wall_eager]}; a record, not a claim)")
+    return {"export_s": built["aot_export_s"],
+            "compile_s": built["aot_compile_s"], "waited_s": waited,
+            "package_mb": mb, "first_ct_s": first,
+            "first_ct_export_s": sum(export_s), "load_s": sum(load_s),
+            "compiles": len(compiles), "logged_loaded": logged,
+            "mtime_same": same, "launches": got,
+            "agreement_vs_eager": agree, "agreement_first_second": repeat,
+            "walls_s": walls, "wall_s": time.perf_counter() - t_phase}
+
+
+def _trace(torch, make_pipe, tree, ct, spacing, launches, kernels, root):
+    """Phase 19(b): one warm CT of phase 2 inside ``maybe_trace``, then a
+    small plain sweep through kernel D in a second trace; both attributed
+    by ``attribute_trace``."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
+                                                        SlidingWindowEngine)
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.ops import scatter_accumulate as kd
+    from fast_nnunet_tpu_torch.utils.profiling import maybe_trace
+    from fast_nnunet_tpu_torch.utils.trace_analysis import (
+        HAND_KERNELS, attribute_trace, format_attribution)
+
+    engine, pipe = make_pipe("")
+    pipe.predict_volume(tree, ct, spacing)  # warm
+    ct_dir = os.path.join(root, "trace_ct")
+    for fn in kernels.values():
+        fn.launches = 0
+    engine.timer = PhaseTimer()
+    t0 = time.perf_counter()
+    with maybe_trace(ct_dir):
+        pipe.predict_volume(tree, ct, spacing)
+        torch.cuda.synchronize()
+    traced = time.perf_counter() - t0
+    phases = engine.timer.totals()
+    engine.timer = None
+    counted = {n: fn.launches for n, fn in kernels.items()}
+    att = attribute_trace(ct_dir)
+    print(f"trace: one warm CT of phase 2 under torch.profiler "
+          f"({traced:.3f} s wall with the profiler on)\n"
+          + format_attribution(att))
+    by_name = dict(zip((n for n, _ in HAND_KERNELS),
+                       ("spatial_sum_sumsq", "grouped_argmax",
+                        "s2d_accumulate", None)))
+    for bucket, name in by_name.items():
+        if name is None:
+            continue
+        n = att["launches"].get(bucket, 0)
+        check(n == counted[name] == launches[name],
+              f"trace: {bucket} {n} launches in the trace, wrapper "
+              f"{counted[name]}, phase 2 {launches[name]}")
+    phase_sum = sum(phases.values()) / 1e3
+    print(f"trace: device busy {att['busy_s']:.4f} s (leaf sum "
+          f"{att['total_s']:.4f} s) in a {att['window_s']:.4f} s device "
+          f"window, idle share {att['idle_share']:.4f}; CUDA-event phase sum "
+          f"{phase_sum:.4f} s " + json.dumps(
+              {k: round(v, 3) for k, v in phases.items()}))
+
+    d_dir = os.path.join(root, "trace_d")
+    vol = np.random.RandomState(2).randn(1, 40, 72, 88).astype(np.float32)
+    net = get_network_from_plans("PlainConvUNet", SMALL_ARCH, (), 1, 4,
+                                 compute_dtype=torch.float32).to("cuda")
+    eng = SlidingWindowEngine(net, (16, 32, 32), 4,
+                              compute_dtype=torch.float32,
+                              sweep_acc_dtype=torch.float32, tile_batch=2,
+                              use_fused_accumulate=True, device="cuda")
+    tree_s = random_plain_params(SMALL_ARCH, 1, 4, seed=2)
+    eng.predict_segmentation_sweep(tree_s, vol)  # warm
+    n0 = kd.fused_scatter_accumulate.launches
+    with maybe_trace(d_dir):
+        eng.predict_segmentation_sweep(tree_s, vol)
+        torch.cuda.synchronize()
+    n_d = kd.fused_scatter_accumulate.launches - n0
+    att_d = attribute_trace(d_dir)
+    d_bucket = HAND_KERNELS[3][0]
+    print(f"trace: small fused plain sweep (phase 6's, patch (16, 32, 32)): "
+          f"{d_bucket} {att_d['launches'].get(d_bucket, 0)} launches in the "
+          f"trace, {n_d} counted by its wrapper, "
+          f"{dict(att_d['buckets']).get(d_bucket, 0.0):.6f} s")
+    check(att_d["launches"].get(d_bucket, 0) == n_d > 0,
+          "trace: kernel D missing from its trace")
+    return {"buckets": att["buckets"], "launches": att["launches"],
+            "total_s": att["total_s"], "busy_s": att["busy_s"],
+            "window_s": att["window_s"], "idle_share": att["idle_share"],
+            "phase_sum_s": phase_sum, "traced_wall_s": traced,
+            "d_launches": n_d}
+
+
+def native_engine_path(torch, dev, worker, built, predict_s=None):
+    """Phase 19(c) (``engine:`` lines), after phase 14: the worker's
+    ``--aoti`` export of phase 14's student validated here (the package
+    against ``model.pt2`` run eagerly, the exporter's 1e-2 bound); the C++
+    engine's ``--aoti`` run on a CT at the INI's target spacing; the port's
+    Python engine over the same INI pipeline on ``model.pt2`` (the eager
+    network: the gate, >= 0.995) and on the package; their seconds beside
+    phase 14's ``/predict``. The worker's root is removed afterwards."""
+    import shutil
+    import numpy as np
+    from fast_nnunet_tpu_torch.export.export_model import (
+        AOTI_ARTIFACT, ARTIFACT, validate_exported_artifact)
+    from fast_nnunet_tpu_torch.imageio.nifti import read_nifti, write_nifti
+    from fast_nnunet_tpu_torch.inference import aot
+    from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
+    from fast_nnunet_tpu_torch.ops import _build
+    from fast_nnunet_tpu_torch.utils.io import join, load_json
+    from fast_nnunet_tpu_torch.utils.synthetic_ct import make_synthetic_ct
+
+    proc, root = worker
+    try:
+        st = built["export"]
+        export = join(root, "export")
+        meta = load_json(join(export, "model_config.json"))
+        pkg = join(export, AOTI_ARTIFACT)
+        mb = os.path.getsize(pkg) / 2**20
+        nets = {"model.pt2": torch.export.load(join(export, ARTIFACT))
+                .module(), "package": aot.load_package(pkg)}
+        code = nets["model.pt2"].code
+        in_shape = meta["input_shape"]
+        t0 = time.perf_counter()
+        rel = validate_exported_artifact(pkg, nets["model.pt2"], in_shape,
+                                         torch.bfloat16, dev,
+                                         load=lambda p: nets["package"])
+        validate_s = time.perf_counter() - t0
+        print(f"engine: student exported with --aoti on the card in the "
+              f"worker process ({st['wall_s']:.3f} s): torch.export "
+              f"{st['export_s']:.3f} s, AOTInductor compile "
+              f"{st['aoti_s']:.3f} s ({AOTI_ARTIFACT} {mb:.1f} MB); here "
+              f"the package against {ARTIFACT} run eagerly on a seeded "
+              f"{tuple(in_shape)} batch: max relative deviation {rel:.3e} "
+              f"(bound 1e-2; {validate_s:.3f} s); sidecar aoti_artifact "
+              f"{meta.get('aoti_artifact')}, aoti_device "
+              f"{meta.get('aoti_device')}; the exported graph holds "
+              f"{code.count('fnn_torch.instance_norm')} norm ops")
+        check(meta.get("aoti_artifact") == AOTI_ARTIFACT
+              and str(meta.get("aoti_device")).startswith("cuda")
+              and "fnn_torch.instance_norm" in code,
+              f"engine: native artifact {meta}")
+        print(f"engine: fast_nnunet_engine built against torch's libraries "
+              f"with {os.path.basename(_build.torch_cxx())} in the worker "
+              f"(with the kernels) in {built['engine_build_s']:.3f} s")
+
+        ini = configparser.ConfigParser(inline_comment_prefixes=("#", ";"))
+        ini.read(os.path.join(HERE, "engine", "config",
+                              "fast_nnunet_bone_turbo.ini"))
+        pp = ini["preprocessing"]
+        lo, hi = pp.getfloat("lower_bound"), pp.getfloat("upper_bound")
+        mean, std = pp.getfloat("mean"), pp.getfloat("std")
+        # the CT at the target spacing: the engine's resampling is the
+        # identity
+        spacing = tuple(float(s) for s in TRAIN_SPACING)
+        img, _ = make_synthetic_ct(ENGINE_CT, spacing, seed=3)
+        ct = join(root, "engine_ct.nii.gz")
+        write_nifti(ct, img, spacing=spacing)
+        cfg = join(root, "engine.ini")
+        with open(cfg, "w") as f:
+            f.write(f"[model]\nnum_class={TRAIN_K}\n[input]\npatch_size="
+                    f"{'x'.join(str(p) for p in TRAIN_PATCH)}\n"
+                    f"target_spacing=({','.join(repr(s) for s in spacing)})"
+                    f"\n[preprocessing]\nmean={mean!r}\nstd={std!r}\n"
+                    f"lower_bound={lo!r}\nupper_bound={hi!r}\n[inference]\n"
+                    f"step_size=0.5\nuse_gaussian=true\ntile_batch=8\n")
+        mask_path = join(root, "engine_mask.nii.gz")
+        t0 = time.perf_counter()
+        run = subprocess.run([_build.engine_binary(), "--config", cfg,
+                              "--input", ct, "--output", mask_path, "--aoti",
+                              pkg], capture_output=True, text=True,
+                             timeout=900)
+        engine_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise SmokeFailure("engine: --aoti run failed:\n"
+                               + run.stdout[-2000:] + run.stderr[-4000:])
+        mask = np.asarray(read_nifti(mask_path)[0])
+
+        # the port's Python engine on the same INI pipeline: on model.pt2
+        # (the eager network), then on the package (the C++ engine's)
+        pre = (np.clip(img.astype(np.float32), np.float32(lo),
+                       np.float32(hi)) - np.float32(mean)) \
+            * np.float32(1.0 / std)
+        agree, python_s = {}, {}
+        for name in ("model.pt2", "package"):
+            eng = SlidingWindowEngine(nets[name], TRAIN_PATCH, TRAIN_K,
+                                      tile_step_size=0.5, use_gaussian=True,
+                                      compute_dtype=torch.bfloat16,
+                                      acc_dtype=torch.float32, shape_bucket=1,
+                                      tile_batch=8, pad_to_tile_batch=True,
+                                      device=dev)
+            t0 = time.perf_counter()  # one run each, cold (a record)
+            want = eng.predict_segmentation([{}], pre[None])
+            python_s[name] = time.perf_counter() - t0
+            agree[name] = float((mask == want).mean())
+        labels = len(set(np.unique(mask).tolist()))
+        print(f"engine: --aoti on {tuple(img.shape)} int16 CT: "
+              f"{engine_s:.3f} s process wall ({run.stdout.strip()}); the "
+              f"port's Python engine, same grid: on {ARTIFACT} "
+              f"{python_s['model.pt2']:.3f} s, on the package "
+              f"{python_s['package']:.3f} s; phase 14's /predict (512 x 512 "
+              f"x {FAST_CT_SLICES}, file to file): "
+              f"{'not run' if predict_s is None else f'{predict_s:.3f} s'}; "
+              f"mask agreement with the Python engine on {ARTIFACT} "
+              f"{agree['model.pt2']:.6f}, on the package "
+              f"{agree['package']:.6f} ({labels} labels)")
+        check(rel <= 1e-2, f"engine: package vs {ARTIFACT} max rel {rel}")
+        check(mask.shape == img.shape, f"engine mask {mask.shape}")
+        check(agree["model.pt2"] >= 0.995,
+              f"engine vs the eager network agreement {agree['model.pt2']}")
+        check(agree["package"] >= 0.995,
+              f"engine vs Python engine agreement {agree['package']}")
+        check(labels > 1, "engine mask has a single label")
+        out = {"export": dict(st, aoti_max_rel=rel,
+                              aoti_validate_s=validate_s),
+               "aoti_artifact": meta.get("aoti_artifact"),
+               "aoti_device": meta.get("aoti_device"), "package_mb": mb,
+               "engine_s": engine_s, "engine_stdout": run.stdout.strip(),
+               "mask_shape": list(mask.shape), "ct_shape": list(img.shape),
+               "labels": labels, "python_s": python_s, "agreement": agree,
+               "engine_build_s": built["engine_build_s"],
+               "predict_s": predict_s}
+        print(json.dumps({"engine_phase": out}))
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def share_path(torch, results_root):
+    """Phase 19(d) (``share:``), in phase 11's root: the planned teacher's
+    fold 0 zipped with ``fast_nnunet_export_model_to_zip_torch``, installed
+    with ``fast_nnunet_install_pretrained_model_from_zip_torch`` into a
+    fresh results root, and every file compared byte for byte."""
+    import filecmp
+    import tempfile
+    from fast_nnunet_tpu_torch.utils.model_sharing import (export_entry,
+                                                           install_entry)
+    folder = "NNUNetTrainer__nnUNetPlans__3d_fullres"
+    t0 = time.perf_counter()
+    fresh = tempfile.mkdtemp(prefix="fnn_chip_smoke_share_")
+    old = os.environ["nnUNet_results"]
+    try:
+        zip_path = os.path.join(fresh, "model.zip")
+        export_entry([str(PIPELINE_DS_ID), "-o", zip_path, "-c",
+                      "3d_fullres", "-f", "0"])
+        os.environ["nnUNet_results"] = os.path.join(fresh, "results")
+        os.makedirs(os.environ["nnUNet_results"])
+        install_entry([zip_path])
+        names = []
+        for rel in ("plans.json", "dataset.json",
+                    os.path.join("fold_0", "checkpoint_final.fnnx")):
+            a = os.path.join(results_root, PIPELINE_DS, folder, rel)
+            b = os.path.join(os.environ["nnUNet_results"], PIPELINE_DS,
+                             folder, rel)
+            check(os.path.isfile(b) and filecmp.cmp(a, b, shallow=False),
+                  f"share: {rel} differs after the zip round trip")
+            names.append(rel)
+        mb = os.path.getsize(zip_path) / 2**20
+    finally:
+        os.environ["nnUNet_results"] = old
+        import shutil
+        shutil.rmtree(fresh, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"share: {PIPELINE_DS} {folder} fold 0 zipped ({mb:.1f} MB) and "
+          f"installed into a fresh results root in {wall:.3f} s; "
+          f"{len(names)} files equal byte for byte: {names}")
+    return {"files": names, "zip_mb": mb, "wall_s": wall}
+
+
 # ------------------------------------------------------------------ multi
 MULTI_PLAIN_SIZE = 256   # phase 18(b): the plain slab sweep's volume edge
 MULTI_ITERS, MULTI_WARM = 7, 1   # phase 18(d): 6 + 1 iterations
@@ -4628,6 +5189,8 @@ def _multi_step_checks(refs, steps, card):
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--phase19-build"]:
+            sys.exit(phase19_build_main(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -8,9 +8,19 @@ over the training mirror axes traced in. Beside it goes the JSON sidecar
 ``model_config.json`` with the JAX sidecar's keys (patch, spacing,
 normalization, labels...), which ``fast_inference`` reads. Its differences:
 ``framework``, ``artifact``, ``input_layout`` (channels-first) and
-``input_shape`` in that layout, no ``pjrt_artifact``, and ``device``, the
-device the program was exported on: an ``ExportedProgram`` records the
-device of its constants, so the artifact serves on that device only.
+``input_shape`` in that layout, and ``device``, the device the program was
+exported on: an ``ExportedProgram`` records the device of its constants, so
+the artifact serves on that device only.
+
+The native artifact (``aoti=True``, ``--aoti`` on the three CLIs):
+``model_aoti.pt2`` beside ``model.pt2``, the AOTInductor package of the same
+``ExportForward`` at the same input shape (inference/aot.py's compile), which
+the engine's in-process backend (``engine/src/aoti_backend.cpp``) loads with
+libtorch. It is the counterpart of the JAX exporter's ``model_pjrt.mlir``:
+the sidecar names it as ``aoti_artifact`` (JAX: ``pjrt_artifact``), with its
+device as ``aoti_device``; it runs on that device only. Unlike JAX's, which
+it always writes, it is opt-in: the compile costs about a minute on a CPU
+for a small network, where ``torch.export`` takes seconds.
 
 The network is rebuilt as the port's predictor builds it
 (``inference.predictor.network_for_checkpoint``: students, BatchNorm with
@@ -18,7 +28,7 @@ its running averages in evaluation mode); a Primus checkpoint raises
 ``NotImplementedError``, as the JAX exporter cannot export one either (it
 builds the plans' CNN and fails to restore). Validation reloads the artifact
 and holds it against the native forward: max relative deviation <= 1e-2,
-else it raises.
+else it raises; the native artifact is reloaded and held the same way.
 """
 import argparse
 import itertools
@@ -32,6 +42,7 @@ from torch import nn
 from ..core.labels import determine_num_input_channels
 from ..core.plans import PlansManager
 from ..device import resolve_device
+from ..inference.aot import compile_package, load_package
 from ..inference.predictor import network_for_checkpoint
 from ..models.unet import params_from_jax
 from ..training.checkpoint import load_checkpoint
@@ -39,6 +50,7 @@ from ..utils.io import join, load_json, maybe_mkdir_p, save_json
 from ..utils.misc import get_output_folder
 
 ARTIFACT = "model.pt2"
+AOTI_ARTIFACT = "model_aoti.pt2"
 FRAMEWORK = "fast-nnunet-tpu-torch"
 
 
@@ -73,12 +85,15 @@ def export_model_folder_to_artifact(
         validate: bool = True,
         dtype: str = "bfloat16",
         bake_mirroring: bool = False,
-        device=None, stats: Optional[dict] = None) -> str:
+        device=None, stats: Optional[dict] = None,
+        aoti: bool = False) -> str:
     """Export one fold of a trained model folder to
     <output_folder>/{model.pt2, model_config.json} on ``device`` (``cuda``
-    unless the caller passes ``"cpu"``). Returns the artifact's path. A
-    ``stats`` dict given gets the export's and the validation's seconds
-    (``export_s``, ``validate_s``) and the validation's ``max_rel``."""
+    unless the caller passes ``"cpu"``), and with ``aoti`` also the native
+    artifact ``model_aoti.pt2``. Returns the artifact's path. A ``stats``
+    dict given gets the export's and the validation's seconds
+    (``export_s``, ``validate_s``) and the validation's ``max_rel``; with
+    ``aoti`` also ``aoti_s``, ``aoti_validate_s`` and ``aoti_max_rel``."""
     dev = resolve_device(device)
     dataset_json = load_json(join(model_training_output_dir, "dataset.json"))
     plans_manager = PlansManager(join(model_training_output_dir, "plans.json"))
@@ -114,6 +129,10 @@ def export_model_folder_to_artifact(
     torch.export.save(exported, artifact_path)
     stats = {} if stats is None else stats
     stats["export_s"] = time.perf_counter() - t0
+    if aoti:
+        t0 = time.perf_counter()
+        compile_package(exported, join(output_folder, AOTI_ARTIFACT))
+        stats["aoti_s"] = time.perf_counter() - t0
 
     trainer_name = ckpt.get("trainer_name", "NNUNetTrainer")
     meta = {
@@ -146,6 +165,9 @@ def export_model_folder_to_artifact(
         "configuration": configuration_name,
         "fold": fold,
     }
+    if aoti:
+        meta["aoti_artifact"] = AOTI_ARTIFACT
+        meta["aoti_device"] = str(dev)
     save_json(meta, join(output_folder, "model_config.json"), sort_keys=False)
 
     if validate:
@@ -154,18 +176,31 @@ def export_model_folder_to_artifact(
                                          compute_dtype, dev)
         stats.update(validate_s=time.perf_counter() - t0, max_rel=rel)
         print(f"Export validation: max relative deviation {rel:.2e}")
+        if aoti:
+            t0 = time.perf_counter()
+            rel = validate_exported_artifact(
+                join(output_folder, AOTI_ARTIFACT), forward, in_shape,
+                compute_dtype, dev, load=load_package)
+            stats.update(aoti_validate_s=time.perf_counter() - t0,
+                         aoti_max_rel=rel)
+            print(f"Native artifact validation: max relative deviation "
+                  f"{rel:.2e}")
     print(f"Exported fold {fold} -> {artifact_path}")
     return artifact_path
 
 
 def validate_exported_artifact(artifact_path: str, reference_fn: Callable,
                                input_shape: Sequence[int],
-                               compute_dtype: torch.dtype, device) -> float:
+                               compute_dtype: torch.dtype, device,
+                               load: Optional[Callable] = None) -> float:
     """Reload the artifact and compare it with the native forward closure,
     baked-in mirroring included, on a seeded input (JAX :157-176): returns
     the max deviation relative to the reference's largest magnitude and
-    raises above 1e-2."""
-    restored = torch.export.load(artifact_path).module()
+    raises above 1e-2. ``load`` (default: ``torch.export.load``'s module)
+    turns the path into the callable; the native artifact passes
+    ``inference.aot.load_package``."""
+    restored = load(artifact_path) if load is not None \
+        else torch.export.load(artifact_path).module()
     x = np.random.RandomState(0).rand(*input_shape).astype(np.float32) - 0.5
     xa = torch.from_numpy(x).to(device, compute_dtype)
     with torch.no_grad():
@@ -199,13 +234,18 @@ def export_entry(argv=None) -> None:
     parser.add_argument("--device", default=None,
                         help="device to export on and serve from: cuda "
                              "(default) or cpu")
+    parser.add_argument("--aoti", action="store_true",
+                        help="also write the native artifact "
+                             "model_aoti.pt2 (an AOTInductor package for "
+                             "the engine's in-process backend; compiling "
+                             "takes about a minute)")
     args = parser.parse_args(argv)
     model_folder = get_output_folder(args.d, args.tr, args.p, args.c)
     out = args.o or join(model_folder, f"fold_{args.f}", "export")
     export_model_folder_to_artifact(model_folder, args.f, out, args.chk, args.b,
                                     not args.no_validate,
                                     bake_mirroring=args.tta,
-                                    device=args.device)
+                                    device=args.device, aoti=args.aoti)
 
 
 # the reference's CLI names map onto the same exporter

@@ -19,6 +19,8 @@ import torch
 
 from ..device import resolve_device
 from ..imageio.nifti import NiftiIOWithReorient
+# registers fnn_torch::instance_norm, which an exported network holds
+from ..models import blocks as _blocks  # noqa: F401
 from ..ops.cropping import crop_to_nonzero
 from ..ops.normalization import get_normalization_scheme_by_class_name
 from ..ops.resampling import compute_new_shape, resample_data_or_seg_to_shape

@@ -45,6 +45,18 @@ numerics. Ported routes:
   loop and its chunk grid; mirror axes shift by one. A (C, Y, X) image is
   one slice.
 
+The package cache (``aot_cache`` / ``FNN_AOT_CACHE``, inference/aot.py):
+the s2d sweep's network forward, on every route that runs
+:class:`S2DChunks` (``run_s2d_sweep``, ``predict_segmentation_sweep_s2d``,
+both routes of the turbo pipeline, the sharded sweep), goes through an
+AOTInductor package per fold, compiled once and loaded by every later
+process; its sweeps pad every tile batch to ``tile_batch``, so one package
+serves every plane. Kernel A stays inside it, in the norm's dispatcher op;
+kernels C and B stay outside it, as in the eager path. Where JAX serializes
+the whole sweep (or the whole turbo program), the port packages only the
+network: the rest of an eager PyTorch sweep is kernel launches and Python
+control flow, not a graph.
+
 Fold ensembles (logits averaged over folds) run in every forward; mirror
 TTA (averaged over all flip combinations) in every plain-network forward,
 not on the s2d sweep. 16-bit accumulators get the reference's x10 gaussian
@@ -214,6 +226,19 @@ class _SliceBatchAdapter(torch.nn.Module):
         return y.unsqueeze(2)
 
 
+class _KeywordForward(torch.nn.Module):
+    """``network(x, **kw)`` as a one-argument module (what ``torch.export``
+    traces for a package)."""
+
+    def __init__(self, network: torch.nn.Module, kw: dict):
+        super().__init__()
+        self.network = network
+        self.kw = dict(kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.network(x, **self.kw)
+
+
 class SlidingWindowEngine:
     """Sliding-window prediction over a (C, *spatial) volume.
 
@@ -231,7 +256,9 @@ class SlidingWindowEngine:
     use_coset_sweep / use_streamed_sweep: the JAX engine's options of the
     same names — which sweep ``predict_segmentation`` takes above the
     accumulator budget (see the module docstring; the streamed sweep not
-    with ``use_fused_accumulate``, as in JAX)."""
+    with ``use_fused_accumulate``, as in JAX). aot_cache: a private
+    directory of AOTInductor packages for the s2d sweep's forward (None:
+    ``FNN_AOT_CACHE``; unset: eager); see the module docstring."""
 
     def __init__(self, network, patch_size: Sequence[int], num_classes: int,
                  tile_step_size: float = 0.5, use_gaussian: bool = True,
@@ -244,7 +271,8 @@ class SlidingWindowEngine:
                  use_fused_accumulate: bool = False,
                  pad_to_tile_batch: bool = False,
                  use_coset_sweep: bool = False,
-                 use_streamed_sweep: bool = False, device=None):
+                 use_streamed_sweep: bool = False, device=None,
+                 aot_cache: Optional[str] = None):
         self.network = network
         self.is_s2d = isinstance(network, s2d_model.S2DPlainConvUNet)
         self.patch_size = tuple(int(p) for p in patch_size)
@@ -278,6 +306,13 @@ class SlidingWindowEngine:
         self._gaussian_base = g
         self._g_cache = {}
         self._folds: Tuple[list, list] = ([], [])  # (trees, modules)
+        # the s2d sweep's forward through AOTInductor packages
+        # (inference/aot.py, the TensorRT saveEngine analogue): None reads
+        # FNN_AOT_CACHE, as the JAX engine does; unset means eager
+        if aot_cache is None:
+            aot_cache = os.environ.get("FNN_AOT_CACHE") or None
+        self.aot_cache = aot_cache
+        self._aot_modules: dict = {}
         #: optional PhaseTimer; the sweeps bracket forward/accumulate/finalize
         self.timer: Optional[PhaseTimer] = None
         self._slice_eng: Optional["SlidingWindowEngine"] = None
@@ -342,10 +377,12 @@ class SlidingWindowEngine:
                         ) -> Tuple[np.ndarray, np.ndarray]:
         """Pad to a multiple of the batch with copies of the last coord at
         validity 0; returns (coords (nb, B, dim), valid (nb, B)). The batch
-        shrinks to the tile count unless ``pad_to_tile_batch``."""
+        shrinks to the tile count unless ``pad_to_tile_batch``, or an s2d
+        engine's ``aot_cache``: a package has a fixed batch, and a plane
+        with fewer tiles would compile another."""
         n_real = len(coords)
-        B = self.tile_batch if self.pad_to_tile_batch \
-            else min(self.tile_batch, max(1, n_real))
+        full = self.pad_to_tile_batch or (self.is_s2d and bool(self.aot_cache))
+        B = self.tile_batch if full else min(self.tile_batch, max(1, n_real))
         n_tiles = _round_up(n_real, B)
         if n_tiles > n_real:
             coords = np.concatenate(
@@ -495,7 +532,27 @@ class SlidingWindowEngine:
                     unet_model.params_from_jax(net, tree)
                     net.eval()  # a BatchNorm predicts with running averages
         self._folds = (trees, nets)  # holds the trees: identity stays valid
+        self._aot_modules = {}  # packages hold the weights they were built on
         return nets
+
+    def fold_forward(self, i: int, tiles: torch.Tensor, **kw) -> torch.Tensor:
+        """Fold i's network on ``tiles`` with the keyword options ``kw``
+        (``return_features`` / ``s2d_output``): eager, or with ``aot_cache``
+        through that fold's AOTInductor package for this input shape and
+        dtype, compiled (or loaded from the cache) at its first call. One
+        package per fold: each holds its fold's weights."""
+        net = (self._folds[1] or [self.network])[i]
+        if not self.aot_cache:
+            return net(tiles, **kw)
+        key = (i, tuple(tiles.shape), tiles.dtype, tuple(sorted(kw.items())))
+        fn = self._aot_modules.get(key)
+        if fn is None:
+            from .aot import aot_compile
+            tag = "s2d_" + "_".join(k for k, v in sorted(kw.items()) if v)
+            fn = aot_compile(_KeywordForward(net, kw), (tiles,),
+                             self.aot_cache, tag=tag)
+            self._aot_modules[key] = fn
+        return fn(tiles)
 
     def _tile_step_fn(self, nets: list) -> Callable:
         """forward(x (B, C, *patch)) -> f32 logits (B, K, *patch), averaged
@@ -1194,11 +1251,12 @@ class S2DChunks:
                 tiles = torch.stack([vol[:, x0:x0 + p0, y:y + py, z:z + pz]
                                      for _, y, z in self.coords_b[bi]])
                 if len(self.nets) == 1:
-                    out = self.nets[0](tiles, return_features=True)
+                    out = eng.fold_forward(0, tiles, return_features=True)
                 else:
-                    out = self.nets[0](tiles, s2d_output=True).float()
-                    for net in self.nets[1:]:
-                        out = out + net(tiles, s2d_output=True).float()
+                    out = eng.fold_forward(0, tiles, s2d_output=True).float()
+                    for i in range(1, len(self.nets)):
+                        out = out + eng.fold_forward(
+                            i, tiles, s2d_output=True).float()
                     out = out / len(self.nets)
             with eng.phase("accumulate"):
                 if len(self.nets) == 1:

@@ -42,6 +42,14 @@ default serving route), on the host library csrc/host_ops.cpp
 
 Both routes run the same per-chunk body (engine.S2DChunks): the same
 tiles in the same batches, so their masks are bit-equal.
+
+Package cache: the pipeline takes its engine's ``aot_cache`` (``FNN_AOT_CACHE``
+when the engine was given none), as JAX's pipeline does. On either route the
+s2d network's forward then runs through an AOTInductor package
+(inference/aot.py), loaded by a fresh process without compiling. JAX
+compiles the whole turbo program (or each streamed chunk's program); the
+port packages only the network, since the rest of a route is eager PyTorch
+(preprocess, kernels C and B, the revert) and no graph.
 """
 import argparse
 import configparser
@@ -814,12 +822,14 @@ class TurboPipeline:
                           checkpoint_name: str = "checkpoint_final.fnnx",
                           air_skip: bool = True, tile_batch: int = 8,
                           compute_dtype=None, device=None,
+                          aot_cache: Optional[str] = None,
                           **pipeline_kwargs):
         """Build (pipeline, params) from a trained model folder: reads the
         ``.fnnx`` checkpoint (numpy-only unpickler), re-parameterizes the
         PlainConvUNet into the s2d form and derives the TurboConfig from
         plans.json. ``params`` is the s2d parameter tree, as in the JAX
-        package; ``predict_volume`` loads it into the network."""
+        package; ``predict_volume`` loads it into the network.
+        ``aot_cache``: the engine's package cache (None: FNN_AOT_CACHE)."""
         from ..core.labels import determine_num_input_channels
         from ..core.plans import PlansManager
         from ..models.s2d import make_s2d_engine_net
@@ -892,7 +902,7 @@ class TurboPipeline:
             s2d, config.patch_size, num_out, tile_step_size=0.5,
             use_gaussian=True, compute_dtype=compute_dtype,
             sweep_acc_dtype=compute_dtype, shape_bucket=32,
-            tile_batch=tile_batch, device=device)
+            tile_batch=tile_batch, device=device, aot_cache=aot_cache)
         return cls(engine, config, air_skip=air_skip, **pipeline_kwargs), params
 
     def predict_file(self, params_list, input_file, output_file: str) -> dict:

@@ -64,6 +64,24 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+@torch.library.custom_op("fnn_torch::instance_norm", mutates_args=())
+def instance_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """:func:`instance_norm` as one dispatcher op, what a traced network
+    (``torch.export``, an AOTInductor package) holds in place of the norm's
+    arithmetic: a package then computes each norm with the eager kernels,
+    where Inductor's fused reduction and affine round differently (masks
+    of a bf16 package drift from eager's). The native engine registers the
+    same op in C++ with the same ATen calls (engine/src/aoti_backend.cpp),
+    so a package runs there without Python."""
+    return instance_norm(x, scale, bias, eps)
+
+
+@instance_norm_op.register_fake
+def _(x, scale, bias, eps):
+    return torch.empty_like(x)
+
+
 def instance_norm_onepass(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, eps: float) -> torch.Tensor:
     """One-pass folded InstanceNorm (the JAX training form), differentiable.
@@ -143,7 +161,9 @@ class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.onepass:
             return instance_norm_onepass(x, self.weight, self.bias, self.eps)
-        return instance_norm(x, self.weight, self.bias, self.eps)
+        norm = instance_norm_op if torch.compiler.is_compiling() \
+            else instance_norm
+        return norm(x, self.weight, self.bias, self.eps)
 
 
 class BatchStatsNorm(nn.Module):

@@ -24,7 +24,12 @@ kernels are (*k, I, O); torch's are (O, I, *k) for convolutions and
 
 InstanceNorm statistics of every activation with >= 4096 spatial voxels come
 from kernel A (ops/stats.py) — the gate fast_nnunet_tpu applies to its
-Pallas stats path, which the port always takes.
+Pallas stats path, which the port always takes. Traced (``torch.export``,
+``torch.compiler.is_compiling()``), each block's norm is the dispatcher op
+``fnn_torch::s2d_instance_norm``, whose eager body launches kernel A: an
+AOTInductor package (inference/aot.py) calls it back, so kernel A is never
+replaced by an Inductor reduction and each norm rounds as in eager. Eager
+calls the function itself (no dispatcher round trip).
 """
 import math
 from typing import Optional, Sequence, Tuple
@@ -169,6 +174,24 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+@torch.library.custom_op("fnn_torch::s2d_instance_norm", mutates_args=())
+def instance_norm_op(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float, groups: int,
+                     stats_min_voxels: int) -> torch.Tensor:
+    """:func:`instance_norm` as one dispatcher op: what a traced network
+    (``torch.export``, an AOTInductor package, inference/aot.py) holds in
+    place of the norm's arithmetic, so a package computes each norm with
+    the eager kernels (kernel A, the f32 affine) and its masks follow the
+    eager network's; Inductor's own reductions and fused affine round
+    differently."""
+    return instance_norm(x, scale, bias, eps, groups, stats_min_voxels)
+
+
+@instance_norm_op.register_fake
+def _(x, scale, bias, eps, groups, stats_min_voxels):
+    return torch.empty_like(x)
+
+
 # ------------------------------------------------------------------ modules
 class _Norm(nn.Module):
     """Affine InstanceNorm parameters of one block (per logical channel,
@@ -201,8 +224,10 @@ class _Block(nn.Module):
         if self.pre_pad is not None:
             x = F.pad(x, self.pre_pad)
         x = self.conv(x)
-        x = instance_norm(x, self.norm.weight, self.norm.bias, self.eps,
-                          self.groups, self.stats_min_voxels)
+        norm = instance_norm_op if torch.compiler.is_compiling() \
+            else instance_norm
+        x = norm(x, self.norm.weight, self.norm.bias, self.eps,
+                 self.groups, self.stats_min_voxels)
         return F.leaky_relu_(x, self.slope)
 
 

@@ -21,6 +21,14 @@ no CUDA toolkit, into ``_build/host-<hash>/`` keyed by the source, the flags
 and the compiler's version. Its failed build raises with the compiler's
 stderr too.
 
+The native engine (``engine/``: the port's copy of the JAX package's C++
+engine with an in-process AOTInductor backend, ``src/aoti_backend.cpp``) is
+built by :func:`engine_binary` with the host compiler of :func:`torch_cxx`
+against torch's own headers and libraries (``torch.utils.cpp_extension`` paths, torch's C++11 ABI
+flag, an rpath to torch's ``lib/``), one compiler process per source, into
+``_build/engine-<hash>/fast_nnunet_engine``; no CMake. Its failed build
+raises with the compiler's stderr.
+
 nvcc runs with ``-Xptxas -v``: what ptxas reports per kernel (registers,
 spills, stack) is kept beside the library as ``ptxas.txt`` and read back by
 :func:`ptxas_report`.
@@ -221,6 +229,120 @@ def host_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _links_openmp(cxx: str) -> bool:
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "probe.cpp")
+        with open(src, "w") as f:
+            f.write("int fnn_probe() { return 0; }\n")
+        return subprocess.run(
+            [cxx, "-fopenmp", "-shared", "-fPIC", src, "-o",
+             os.path.join(d, "probe.so")], capture_output=True).returncode == 0
+
+
+@functools.lru_cache(maxsize=None)
+def torch_cxx() -> str:
+    """The host compiler for code that links against torch's C++ libraries
+    (AOTInductor packages, the native engine): the first of ``$CXX``,
+    ``g++``, ``c++``, ``/usr/bin/g++``, ``/usr/bin/c++`` and ``clang++``
+    that links ``-fopenmp`` (Inductor always passes it on Linux, and a GCC
+    installed without its OpenMP files cannot). Raises when none does."""
+    tried = []
+    for cand in (os.environ.get("CXX"), "g++", "c++", "/usr/bin/g++",
+                 "/usr/bin/c++", "clang++"):
+        path = shutil.which(cand) if cand else None
+        if not path or path in tried:
+            continue
+        tried.append(path)
+        if _links_openmp(path):
+            return path
+    raise RuntimeError(f"no host C++ compiler links -fopenmp (tried "
+                       f"{tried or 'none found'}); AOTInductor packages and "
+                       "the native engine need one")
+
+
+ENGINE_DIR = os.path.join(_PKG, "engine")
+ENGINE_BIN = "fast_nnunet_engine"
+ENGINE_FLAGS = ["-O3", "-std=c++17", "-fPIC"]
+
+
+def _torch_build_paths():
+    """(include dirs, library dir, ABI define, libraries) of the installed
+    torch: the CUDA libraries where torch has them, linked even though no
+    symbol of theirs is named (they register the CUDA package runner)."""
+    import torch
+    from torch.utils import cpp_extension
+    lib_dir = cpp_extension.library_paths()[0]
+    libs = ["torch", "torch_cpu", "c10"]
+    for cuda_lib in ("torch_cuda", "c10_cuda"):
+        if os.path.isfile(os.path.join(lib_dir, f"lib{cuda_lib}.so")):
+            libs.append(cuda_lib)
+    abi = f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
+    return cpp_extension.include_paths(), lib_dir, abi, libs
+
+
+@functools.lru_cache(maxsize=None)
+def engine_binary() -> str:
+    """Build (once per source hash, flags, compiler and torch) the port's
+    native engine and return the path of its executable. One process of
+    :func:`torch_cxx`'s compiler per ``engine/src/*.cpp``, all started together, then one link
+    against torch's libraries with an rpath to them and zlib's shared
+    library; into a temporary directory, moved into place with
+    ``os.replace``. A failed build raises with the compiler's stderr."""
+    import torch
+    cxx = torch_cxx()
+    includes, lib_dir, abi, libs = _torch_build_paths()
+    sources = sorted(glob.glob(os.path.join(ENGINE_DIR, "src", "*.cpp")))
+    headers = sorted(glob.glob(os.path.join(ENGINE_DIR, "include", "**",
+                                            "*.h"), recursive=True))
+    cflags = ENGINE_FLAGS + [abi, "-I", os.path.join(ENGINE_DIR, "include")] \
+        + [f"-I{d}" for d in includes]
+    ldflags = [f"-L{lib_dir}", f"-Wl,-rpath,{lib_dir}", "-Wl,--no-as-needed"] \
+        + [f"-l{lib}" for lib in libs] \
+        + ["-Wl,--as-needed", "-l:libz.so.1", "-lpthread", "-ldl"]
+    h = hashlib.sha256()
+    for path in sources + headers:
+        h.update(os.path.relpath(path, ENGINE_DIR).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(cflags + ldflags).encode())
+    h.update(torch.__version__.encode())
+    h.update(subprocess.run([cxx, "--version"], capture_output=True,
+                            text=True, check=True).stdout.encode())
+    final_dir = os.path.join(BUILD_ROOT, "engine-" + h.hexdigest()[:16])
+    final_bin = os.path.join(final_dir, ENGINE_BIN)
+    if os.path.isfile(final_bin):
+        return final_bin
+    os.makedirs(BUILD_ROOT, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="build-engine-", dir=BUILD_ROOT)
+    try:
+        procs = []
+        for src in sources:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [cxx, *cflags, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, _, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"--- {os.path.basename(src)} "
+                              f"(exit {proc.returncode})\n{err}")
+        if errors:
+            raise RuntimeError(f"{os.path.basename(cxx)} failed on the "
+                               "engine:\n" + "\n".join(errors))
+        built = os.path.join(tmp, ENGINE_BIN)
+        link = subprocess.run([cxx, *[obj for _, obj, _ in procs], "-o",
+                               built, *ldflags], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"engine link failed:\n{link.stderr}")
+        os.makedirs(final_dir, exist_ok=True)
+        os.replace(built, final_bin)  # atomic: concurrent builds agree
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return final_bin
 
 
 def _demangle(names):

@@ -4,7 +4,7 @@ crop-to-nonzero, sample foreground intensities (``RandomState(1234)``),
 record shapes and spacings; per-channel intensity statistics over the pooled
 samples -> ``dataset_fingerprint.json``. With ``num_processes`` > 1 the
 cases are read in a spawned process pool; the workers never touch the
-card."""
+card (``utils.mp_env.cpu_only_child_env`` hides it from them)."""
 import multiprocessing
 from concurrent.futures import ProcessPoolExecutor
 from typing import List
@@ -17,6 +17,7 @@ from ..utils.dataset_io import get_filenames_of_train_images_and_targets
 from ..utils.io import (isfile, join, load_json, maybe_mkdir_p, save_json,
                         recursive_fix_for_json_export)
 from ..utils.misc import maybe_convert_to_dataset_name
+from ..utils.mp_env import cpu_only_child_env
 
 
 class DatasetFingerprintExtractor:
@@ -94,8 +95,9 @@ class DatasetFingerprintExtractor:
                                          samples_per_case) for k in keys]
         else:
             ctx = multiprocessing.get_context("spawn")
-            with ProcessPoolExecutor(max_workers=self.num_processes,
-                                     mp_context=ctx) as ex:
+            with cpu_only_child_env(), \
+                    ProcessPoolExecutor(max_workers=self.num_processes,
+                                        mp_context=ctx) as ex:
                 futures = [ex.submit(self.analyze_case, self.dataset[k]["images"],
                                      self.dataset[k]["label"], rw_class,
                                      samples_per_case) for k in keys]

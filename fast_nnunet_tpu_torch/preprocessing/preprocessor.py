@@ -5,7 +5,8 @@ resampling so the nonzero mask still aligns with the image. With a
 segmentation the foreground locations for the patch sampler are collected
 as there. ``run`` preprocesses a whole raw dataset into the ``.npy`` case
 store (``training/dataset.NpyCaseDataset``), in a spawned process pool when
-``num_processes`` > 1, or into the chunked-zstd ``.fnnz`` store
+``num_processes`` > 1 (the card hidden from its workers,
+``utils.mp_env``), or into the chunked-zstd ``.fnnz`` store
 (``storage="fnnz"``, ``FNNT_STORE=fnnz``; ``training/zstd_store.py``, bricks
 sized from the configuration's patch). ``run`` also copies the raw
 dataset.json next to the plans, as the reference's preprocessing does (the
@@ -27,6 +28,7 @@ from ..training.dataset import NpyCaseDataset
 from ..training.zstd_store import ZstdCaseDataset
 from ..utils.dataset_io import get_filenames_of_train_images_and_targets
 from ..utils.io import join, load_json, maybe_mkdir_p
+from ..utils.mp_env import cpu_only_child_env
 
 
 class DefaultPreprocessor:
@@ -218,8 +220,9 @@ class DefaultPreprocessor:
                                    storage=storage)
             return
         ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=num_processes,
-                                 mp_context=ctx) as ex:
+        with cpu_only_child_env(), \
+                ProcessPoolExecutor(max_workers=num_processes,
+                                    mp_context=ctx) as ex:
             futures = [ex.submit(_run_case_save_worker, type(self), out_trunc,
                                  images, label, plans_manager.plans,
                                  configuration_name, dataset_json, storage)

@@ -48,7 +48,6 @@ the cases ``val_keys[rank::world]``. Only rank 0 writes logs, plots,
 a checkpoint onto its own card.
 """
 import os
-import sys
 import time
 from datetime import datetime
 from typing import List, Optional, Tuple, Union
@@ -67,6 +66,7 @@ from ..parallel import distributed as pdist
 from ..parallel.collectives import broadcast_
 from ..utils.io import isfile, join, load_json, maybe_mkdir_p, save_json
 from ..utils.misc import generate_crossval_split
+from ..utils.profiling import environment_summary
 from .augment import (TrainingAugmenter, ValidationAugmenter,
                       configure_rotation_dummyDA_mirroring_and_initial_patch_size)
 from .checkpoint import load_checkpoint as load_ckpt_file
@@ -416,14 +416,7 @@ class NNUNetTrainer:
             self.on_train_end()
 
     def _environment(self) -> dict:
-        env = {"python": sys.version.split()[0], "torch": torch.__version__,
-               "cuda": torch.version.cuda, "device": str(self.device),
-               "cudnn": torch.backends.cudnn.version()
-               if torch.backends.cudnn.is_available() else None}
-        if self.device.type == "cuda":
-            env["gpu_name"] = torch.cuda.get_device_name(self.device)
-            env["gpu_count"] = torch.cuda.device_count()
-        return env
+        return environment_summary(self.device)
 
     def on_train_start(self) -> None:
         if not self.was_initialized:

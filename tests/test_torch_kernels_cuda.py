@@ -766,3 +766,68 @@ def test_sharded_sweeps_two_gloo_ranks_on_one_card(cuda_device):
         for r in out:
             assert (r[2][3] > 0) if kind == "fused" else \
                 (r[2][1] > 0 and r[2][2] > 0)
+
+
+# ------------------------------------ the norm ops, packages, the engine
+@pytest.mark.parametrize("shape", [(8, 128, 80, 48, 48), (2, 16, 24, 24, 40)])
+def test_s2d_norm_op_bit_equals_the_eager_norm(cuda_device, shape):
+    """``torch.ops.fnn_torch.s2d_instance_norm`` on the card launches kernel
+    A once (counted) and gives the eager norm bit for bit."""
+    from fast_nnunet_tpu_torch.models.s2d import (instance_norm,
+                                                  instance_norm_op)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    c = shape[1] // 8
+    scale = (torch.rand(c, generator=g) + 0.5).to(cuda_device)
+    bias = torch.randn(c, generator=g).to(cuda_device)
+    n0 = spatial_sum_sumsq.launches
+    got = instance_norm_op(x, scale, bias, 1e-5, 8, 4096)
+    assert spatial_sum_sumsq.launches == n0 + 1
+    want = instance_norm(x, scale, bias, 1e-5, 8, 4096)
+    assert torch.equal(got, want) and got.dtype == torch.bfloat16
+
+
+def test_packaged_s2d_forward_launches_kernel_a(cuda_device, tmp_path):
+    """An AOTInductor package of an s2d forward calls kernel A through the
+    dispatcher (never an Inductor reduction in its place): the same launch
+    count as the eager forward, features within bf16 fusion noise."""
+    from fast_nnunet_tpu_torch.inference import aot
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  params_from_jax)
+    net = make_s2d_engine_net(ARCH, K, 1, compute_dtype=torch.bfloat16)
+    params_from_jax(net, net.convert_params(plain_params(0)))
+    net.to(cuda_device).eval()
+    net.set_stats_min_voxels(0)
+
+    class Features(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.network = net
+
+        def forward(self, x):
+            return self.network(x, return_features=True)
+
+    x = torch.randn(2, 1, 16, 16, 32, device=cuda_device,
+                    dtype=torch.bfloat16)
+    fn = aot.aot_compile(Features(), (x,), str(tmp_path / "cache"))
+    with torch.no_grad():
+        n0 = spatial_sum_sumsq.launches
+        want = net(x, return_features=True)
+        eager = spatial_sum_sumsq.launches - n0
+        got = fn(x)
+        packaged = spatial_sum_sumsq.launches - n0 - eager
+    assert eager > 0 and packaged == eager
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert rel <= 2e-2, rel
+
+
+def test_engine_binary_links_libtorch_cuda(cuda_device):
+    import subprocess
+    from fast_nnunet_tpu_torch.ops import _build
+    binary = _build.engine_binary()
+    ldd = subprocess.run(["ldd", binary], capture_output=True, text=True)
+    assert "libtorch_cuda.so" in ldd.stdout, ldd.stdout
+    r = subprocess.run([binary, "--help"], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and "--aoti" in r.stderr

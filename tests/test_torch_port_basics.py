@@ -37,7 +37,10 @@ for n in ("export.export_model", "fast_inference.inferencer",
           "imageio.dicom", "dataset_conversion.convert_msd",
           "dataset_conversion.converters", "models.primus",
           "training.primus_trainers", "parallel", "parallel.distributed",
-          "parallel.mesh", "parallel.collectives", "inference.sharded"):
+          "parallel.mesh", "parallel.collectives", "inference.sharded",
+          "inference.aot", "utils.mp_env", "utils.profiling",
+          "utils.trace_analysis", "utils.batch_running",
+          "utils.model_sharing"):
     assert pkg.__name__ + "." + n in names, n
 """
 
@@ -51,14 +54,16 @@ def test_port_imports_no_jax():
     examples and libdeflate modules, the host library's binding, and the
     case stores, readers, weight import and dataset converters, and the
     Primus network and trainers, and the multi-GPU layer (parallel/*,
-    inference/sharded.py); zstandard,
+    inference/sharded.py), and the package cache (inference/aot.py) and
+    the last utilities (mp_env, profiling, trace_analysis, batch_running,
+    model_sharing); zstandard,
     msgpack, blosc2 and PIL stay unimported until a function needs them."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 107, res.stdout
+    assert n_modules >= 113, res.stdout
 
 
 def test_resolve_device_never_falls_back():

@@ -5,6 +5,7 @@ persistent XLA compile cache out of the port's tests.
 
 Inputs and weights are made with numpy from a seed and handed to both the
 JAX package (the reference) and the port."""
+import contextlib
 import os
 
 import numpy as np
@@ -47,6 +48,20 @@ def s2d_pair(seed: int = 0, arch=None, k: int = K, dtype="float32"):
     return jnet, tnet, tree
 
 
+@contextlib.contextmanager
+def persistent_compile_cache_off():
+    """JAX without its persistent compile cache for the block (see
+    :func:`no_persistent_compile_cache`); module-scoped fixtures that run
+    JAX use it, as they are set up before the autouse fixture."""
+    import jax
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
 @pytest.fixture(autouse=True)
 def no_persistent_compile_cache():
     """Compile every JAX function of the test afresh, as tests/test_aot.py
@@ -55,11 +70,8 @@ def no_persistent_compile_cache():
     ('Buffer Definition Event ... not found'). Autouse only in the files
     that import it; JAX is imported here, not at module level, so files
     that run on the card without JAX can import this module."""
-    import jax
-    prev = jax.config.jax_compilation_cache_dir
-    jax.config.update("jax_compilation_cache_dir", None)
-    yield
-    jax.config.update("jax_compilation_cache_dir", prev)
+    with persistent_compile_cache_off():
+        yield
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
