@@ -456,6 +456,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def device_ms(totals: dict) -> dict:
+    """A timer's CUDA-event phases (its totals without the host: and
+    count: keys)."""
+    return {k: v for k, v in totals.items() if ":" not in k}
+
+
 def time_ms(torch, fn, n=10, warmup=2):
     """Mean device milliseconds of fn over n calls (CUDA events)."""
     for _ in range(warmup):
@@ -594,7 +600,7 @@ def main() -> int:
     seg = pipe.predict_volume(tree, ct, spacing)
     wall = [time.perf_counter() - t0]
     launches = {name: fn.launches for name, fn in kernels.items()}
-    phases = engine.timer.totals()
+    phases = device_ms(engine.timer.totals())
     engine.timer = None
     peak = torch.cuda.max_memory_allocated()
     for _ in range(3):
@@ -1030,7 +1036,7 @@ def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):
     seg = engine.predict_segmentation(tree, vol)
     wall = [time.perf_counter() - t0]
     launches = kd.fused_scatter_accumulate.launches
-    phases = engine.timer.totals()
+    phases = device_ms(engine.timer.totals())
     engine.timer = None
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -1093,8 +1099,11 @@ def host_route_path(torch, pipe, tree, tree2, ct, spacing, seg_dev,
         mask = p.predict_volume(params, ct, spacing)
         walls = [time.perf_counter() - t0]
         launches = {name: fn.launches for name, fn in kernels.items()}
-        phases = engine.timer.totals()
-        host_s = dict(p.host_seconds)
+        totals = engine.timer.totals()
+        phases = device_ms(totals)
+        host_s = {k: totals["host:host_" + k] / 1e3
+                  for k in ("preprocess", "air", "revert")
+                  if "host:host_" + k in totals}
         engine.timer = None
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for _ in range(runs - 1):
@@ -1245,7 +1254,7 @@ def plain_sweeps(torch, dev, K, arch, seg_quantised, size=512,
         t0 = time.perf_counter()
         mask = engine.predict_segmentation(tree, vol)
         wall = time.perf_counter() - t0
-        phases = engine.timer.totals()
+        phases = device_ms(engine.timer.totals())
         print(f"host: plain {name}: {wall:.4f} s per volume (one run, "
               f"includes its first call's allocations); peak "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
@@ -1833,7 +1842,8 @@ def train_main_path(torch, dev, a_row, iters=12, warm=3):
     net = trainer.network
     st = cap["stamps"]
     fed = (st[-1] - st[warm]) / (iters - warm)
-    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    phases = {k: v / (iters - warm)
+              for k, v in device_ms(timer.totals()).items()}
     with open(os.path.join(trainer.output_folder, "validation",
                            "summary.json")) as f:
         summary = json.load(f)
@@ -2422,7 +2432,8 @@ def _primus(torch, dev, iters, warm):
     cm = trainer.configuration_manager
     st = cap["stamps"]
     fed = (st[-1] - st[warm]) / (iters - warm)
-    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    phases = {k: v / (iters - warm)
+              for k, v in device_ms(timer.totals()).items()}
     tl = trainer.logger.logging
     check(isinstance(net, Primus), f"the trainer built a {type(net)}")
     dims = {"embed_dim": net.embed_dim, "depth": net.depth,
@@ -3288,7 +3299,8 @@ def _train_configuration(torch, dev, a_row, configuration, fold, iters,
     trainer = cap["trainer"]
     st = cap["stamps"]
     fed = (st[-1] - st[warm]) / (iters - warm)
-    phases = {k: v / (iters - warm) for k, v in timer.totals().items()}
+    phases = {k: v / (iters - warm)
+              for k, v in device_ms(timer.totals()).items()}
     cm = trainer.configuration_manager
     x1 = torch.zeros((1, trainer.num_input_channels, *cm.patch_size),
                      device=dev)
@@ -3943,7 +3955,7 @@ def _fast_inference(torch, dev, root, n_slices):
             inferencer_module.\
                 remove_all_but_largest_component_from_segmentation = real_pp
         walls["predict"] = time.perf_counter() - t0
-        phases = inferencer.engine.timer.totals()
+        phases = device_ms(inferencer.engine.timer.totals())
         inferencer.engine.timer = None
         host = dict(inferencer.timings)
         check(code == 200, f"/predict {code} {body[:300]!r}")
@@ -4334,7 +4346,7 @@ def _trace(torch, make_pipe, tree, ct, spacing, launches, kernels, root):
         pipe.predict_volume(tree, ct, spacing)
         torch.cuda.synchronize()
     traced = time.perf_counter() - t0
-    phases = engine.timer.totals()
+    phases = device_ms(engine.timer.totals())
     engine.timer = None
     counted = {n: fn.launches for n, fn in kernels.items()}
     att = attribute_trace(ct_dir)

@@ -62,7 +62,6 @@ TTA (averaged over all flip combinations) in every plain-network forward,
 not on the s2d sweep. 16-bit accumulators get the reference's x10 gaussian
 scaling.
 """
-import contextlib
 import copy
 import itertools
 import math
@@ -82,6 +81,8 @@ from ..ops.scatter_accumulate import MAX_TILES, fused_scatter_accumulate
 from ..ops.sliding_window import (compute_gaussian,
                                   compute_steps_for_sliding_window,
                                   tile_coords_from_steps)
+from ..utils import profiling
+from ..utils.profiling import PhaseTimer
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,33 +96,6 @@ def _flip_combos(mirror_axes: Tuple[int, ...]) -> List[Tuple[int, ...]]:
     for ax in mirror_axes:
         combos += [c + (ax,) for c in combos]
     return combos
-
-
-class PhaseTimer:
-    """Device-timeline phase times from CUDA events: ``phase(name)``
-    brackets work with an event pair; ``totals()`` synchronizes once and
-    returns milliseconds summed per name."""
-
-    def __init__(self):
-        self._events = []
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._events.append((name, start, end))
-
-    def totals(self) -> dict:
-        torch.cuda.synchronize()
-        out: dict = {}
-        for name, s, e in self._events:
-            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
-        return out
 
 
 class StripUploader:
@@ -313,14 +287,19 @@ class SlidingWindowEngine:
             aot_cache = os.environ.get("FNN_AOT_CACHE") or None
         self.aot_cache = aot_cache
         self._aot_modules: dict = {}
-        #: optional PhaseTimer; the sweeps bracket forward/accumulate/finalize
+        #: optional utils.profiling.PhaseTimer; the sweeps bracket
+        #: forward/accumulate/finalize and count tiles and copied bytes
         self.timer: Optional[PhaseTimer] = None
         self._slice_eng: Optional["SlidingWindowEngine"] = None
 
-    def phase(self, name: str):
-        """Bracket work with the timer's event pair (no-op without one)."""
-        return self.timer.phase(name) if self.timer is not None \
-            else contextlib.nullcontext()
+    def phase(self, name: str, events: bool = True):
+        """Bracket work with a phase of the timer (utils.profiling.phase)."""
+        return profiling.phase(self.timer, name, events)
+
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the timer's counter ``name`` (nothing without one)."""
+        if self.timer is not None:
+            self.timer.count(name, n)
 
     # ------------------------------------------------------------- geometry
     def _acc_channels(self) -> int:
@@ -702,6 +681,7 @@ class SlidingWindowEngine:
                                "consider acc_dtype=float32")
         logits = logits.permute(3, 0, 1, 2).contiguous()
         with self.phase("d2h"):
+            self.count("d2h_pageable_bytes", logits.nbytes)
             return logits.cpu().numpy()
 
     # -------------------------------------------------------- 2D-over-slices
@@ -829,6 +809,7 @@ class SlidingWindowEngine:
             acc_t = a[..., :K].permute(3, 0, 1, 2).to(t_host).contiguous()
             w_t = a[..., K].float()
             with self.phase("d2h"):
+                self.count("d2h_pageable_bytes", acc_t.nbytes + w_t.nbytes)
                 acc_np, w_np = acc_t.cpu().numpy(), w_t.cpu().numpy()
             out[(slice(None),) + valid_sl] += acc_np
             wtot[valid_sl] += w_np
@@ -987,6 +968,7 @@ class SlidingWindowEngine:
                         spare[p0 - n:].zero_()
                         acc, spare = spare, acc
                 with self.phase("d2h"):
+                    self.count("d2h_pinned_bytes", rows.nbytes)
                     fetch.put(rows)
         seg = np.concatenate(fetch.results(), 0)
         return seg[tuple(slice(0, s) for s in spatial)]
@@ -1243,10 +1225,14 @@ class S2DChunks:
         acc, row_base = (self.acc, self.row_base) if row0 is None else \
             (self.acc[row0:row0 + self.p0h], 0)
         p0, py, pz = eng.patch_size
+        timer = eng.timer
         for bi in range(len(self.coords_b)):
             valid = self.valid_b[bi] if valid_c is None else valid_c[bi]
             if valid_c is not None and not valid.any():
                 continue  # whole-air batch: no forward at all
+            if timer is not None:
+                timer.count("tiles_kept", int(valid.sum()))
+                timer.count("tiles_forwarded", len(valid))
             with eng.phase("forward"):
                 tiles = torch.stack([vol[:, x0:x0 + p0, y:y + py, z:z + pz]
                                      for _, y, z in self.coords_b[bi]])

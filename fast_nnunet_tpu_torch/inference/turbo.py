@@ -435,10 +435,10 @@ class TurboPipeline:
             self.air_threshold = float("-inf")
         self._staging = {}
         #: the route the last predict_volume took ("device", "host" or
-        #: "streamed") and its host seconds ("preprocess", "air" flags,
-        #: "revert")
+        #: "streamed"); the host route's host work shows as the engine
+        #: timer's host-only phases "host_preprocess", "host_air" (flags)
+        #: and "host_revert"
         self.route = None
-        self.host_seconds: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -524,16 +524,22 @@ class TurboPipeline:
         its spacing -> uint8 segmentation on the ORIGINAL grid.
         ``params_list`` is the s2d parameter tree, or a list of them (a
         fold ensemble), loaded into the network(s) unless they are the ones
-        already loaded."""
-        cfg, eng = self.config, self.engine
+        already loaded. The engine's timer sees one host-only phase,
+        "predict_volume", around the CT's other phases."""
+        cfg = self.config
         if volume.ndim == len(cfg.patch_size):
             volume = volume[None]
         if volume.shape[0] != cfg.num_input_channels:
             raise ValueError(
                 f"{volume.shape[0]} input channels but TurboConfig declares "
                 f"{cfg.num_input_channels} normalization schemes")
+        with self.engine.phase("predict_volume", events=False):
+            return self._predict(params_list, volume, spacing)
+
+    def _predict(self, params_list, volume: np.ndarray,
+                 spacing: Sequence[float]) -> np.ndarray:
+        cfg, eng = self.config, self.engine
         eng.load_params(params_list)
-        self.host_seconds = {}
         if self.host_preprocess and volume.dtype == np.int16:
             return self._predict_host(volume, spacing)
         self.route = "device"
@@ -549,6 +555,7 @@ class TurboPipeline:
                 out = resize_nearest(s, in_shape).permute(
                     *cfg.transpose_backward).contiguous()
             with eng.phase("d2h"):
+                eng.count("d2h_pageable_bytes", out.nbytes)
                 mask = out.cpu().numpy()
         return mask
 
@@ -557,10 +564,6 @@ class TurboPipeline:
         chs = self.config.channels
         return ([c["lower_bound"] for c in chs], [c["upper_bound"] for c in chs],
                 [c["mean"] for c in chs], [c["std"] for c in chs])
-
-    def _add_seconds(self, name: str, t0: float) -> None:
-        self.host_seconds[name] = self.host_seconds.get(name, 0.0) + \
-            time.perf_counter() - t0
 
     def _predict_host(self, volume: np.ndarray, spacing) -> np.ndarray:
         """The host route of an int16 CT (see the module docstring)."""
@@ -575,10 +578,9 @@ class TurboPipeline:
             seg = self._predict_streamed(new_shape, new_shape_img, raw=volume)
             if seg is not None:
                 return self._finish_host(seg, in_shape)
-        t0 = time.perf_counter()
-        grid = hostops.preprocess_ct_i16(volume, new_shape_img,
-                                         *self._ct_scalars())
-        self._add_seconds("preprocess", t0)
+        with self.engine.phase("host_preprocess", events=False):
+            grid = hostops.preprocess_ct_i16(volume, new_shape_img,
+                                             *self._ct_scalars())
         if stream_on and not lazy_on:
             seg = self._predict_streamed(new_shape, new_shape_img, grid=grid)
             if seg is not None:
@@ -637,19 +639,19 @@ class TurboPipeline:
                 packed = pack_mask6(s) if self.pack_mask else s.contiguous()
             fetch = RowFetcher(self.device)
             with eng.phase("d2h"):
+                eng.count("d2h_pinned_bytes", packed.nbytes)
                 fetch.put(packed)
             host = fetch.results()[0]
-        t0 = time.perf_counter()
-        seg = _unpack_mask6(host, tuple(s.shape)) if self.pack_mask else host
-        self._add_seconds("revert", t0)
+        with eng.phase("host_revert", events=False):
+            seg = _unpack_mask6(host, tuple(s.shape)) if self.pack_mask \
+                else host
         return self._finish_host(seg, in_shape)
 
     def _finish_host(self, seg: np.ndarray, in_shape) -> np.ndarray:
         """Engine-order target-grid mask -> original grid, image order."""
-        t0 = time.perf_counter()
-        if seg.shape != tuple(in_shape):
-            seg = hostops.nearest_revert_u8(seg, in_shape)
-        self._add_seconds("revert", t0)
+        with self.engine.phase("host_revert", events=False):
+            if seg.shape != tuple(in_shape):
+                seg = hostops.nearest_revert_u8(seg, in_shape)
         return np.transpose(seg, self.config.transpose_backward)
 
     def _predict_streamed(self, new_shape, img_shape, raw=None, grid=None
@@ -754,18 +756,17 @@ class TurboPipeline:
             def fill(host):
                 out = host.numpy().view(np.uint16)
                 if raw is not None:
-                    t0_ = time.perf_counter()
-                    hostops.preprocess_ct_i16_box(raw, img_shape, b6, lbs,
-                                                  ubs, means, stds, out=out)
-                    self._add_seconds("preprocess", t0_)
+                    with eng.phase("host_preprocess", events=False):
+                        hostops.preprocess_ct_i16_box(
+                            raw, img_shape, b6, lbs, ubs, means, stds,
+                            out=out)
                 else:
                     out[...] = grid[(slice(None),) + tuple(
                         slice(b6[2 * ax], b6[2 * ax + 1]) for ax in range(3))]
                 if air:
-                    t0_ = time.perf_counter()
-                    rowmax[a:a + shape[t0]] = np.maximum(
-                        _row_blocks(out[0], tf, oy, oz, by, bz), floor)
-                    self._add_seconds("air", t0_)
+                    with eng.phase("host_air", events=False):
+                        rowmax[a:a + shape[t0]] = np.maximum(
+                            _row_blocks(out[0], tf, oy, oz, by, bz), floor)
             return up.put((C, *shape), torch.int16, fill), shape[t0]
 
         def prep_into(dst, handle):
@@ -803,6 +804,7 @@ class TurboPipeline:
                     packed = pack_mask6(r) if self.pack_mask \
                         else r.contiguous()
                 with eng.phase("d2h"):
+                    eng.count("d2h_pinned_bytes", packed.nbytes)
                     fetch.put(packed)
                 pieces.append(n2)
                 if k < n_starts - 1:
@@ -810,12 +812,10 @@ class TurboPipeline:
                     prep_into(spare[:, p0 - n2:], handles[k + 1])
                     handles[k + 1] = None
                     slab, spare = spare, slab
-        t0_ = time.perf_counter()
-        segs = [_unpack_mask6(p, (n2, ny, nz)) if self.pack_mask else p
-                for n2, p in zip(pieces, fetch.results())]
-        seg = np.concatenate(segs, 0)[:nx]
-        self._add_seconds("revert", t0_)
-        return seg
+        with eng.phase("host_revert", events=False):
+            segs = [_unpack_mask6(p, (n2, ny, nz)) if self.pack_mask else p
+                    for n2, p in zip(pieces, fetch.results())]
+            return np.concatenate(segs, 0)[:nx]
 
     @classmethod
     def from_model_folder(cls, model_folder: str, fold=0,

@@ -39,9 +39,10 @@ from ..models.students import build_lite_student
 from ..models.unet import params_from_jax, params_from_jax_partial
 from ..parallel.collectives import average_gradients_, global_mean_
 from ..utils.io import isfile, join, load_json, subdirs
+from ..utils.profiling import phase
 from .augment_da5 import DA5TrainingAugmenter
 from .checkpoint import load_checkpoint as load_ckpt_file
-from .train_step import ds_weights, forward_loss, make_loss_fn, timed_phase
+from .train_step import ds_weights, forward_loss, make_loss_fn
 from .trainer import NNUNetTrainer
 
 
@@ -87,22 +88,22 @@ def make_distill_train_step(student, teachers: Sequence[torch.nn.Module],
     def step(data, targets):
         student.train()
         optimizer.zero_grad()
-        with timed_phase(step.timer, "forward_loss"):
+        with phase(step.timer, "forward_loss"):
             outputs, seg_loss = forward_loss(student, loss_fn, weights, data,
                                              targets)
-            with timed_phase(step.timer, "teachers"):
+            with phase(step.timer, "teachers"):
                 t_logits = ensemble_teacher_logits(teachers, data)
             dloss = distillation_loss(outputs[0], t_logits, temperature)
             total = (1.0 - alpha) * seg_loss + alpha * dloss
-        with timed_phase(step.timer, "backward"):
+        with phase(step.timer, "backward"):
             total.backward()
         losses = torch.stack([total.detach(), seg_loss.detach(),
                               dloss.detach()])
         if group is not None:
-            with timed_phase(step.timer, "all_reduce"):
+            with phase(step.timer, "all_reduce"):
                 average_gradients_(params, group)
                 losses = global_mean_(losses, group)
-        with timed_phase(step.timer, "optimizer"):
+        with phase(step.timer, "optimizer"):
             optimizer.step()
         return tuple(losses.unbind())
 

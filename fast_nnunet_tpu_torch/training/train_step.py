@@ -15,13 +15,13 @@ backward with bucketed all-reduces (parallel/collectives.py
 ``average_gradients_``), and the returned loss is the global one. Every
 rank then makes the same update, so the replicas stay bit-equal.
 """
-import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ..parallel.collectives import (all_reduce_, average_gradients_,
                                     global_mean_)
+from ..utils.profiling import phase
 from .losses import (dc_and_bce_loss, dc_and_ce_loss, deep_supervision_weights,
                      deep_supervised_loss, hard_tp_fp_fn)
 
@@ -74,9 +74,9 @@ def make_train_step(network, optimizer, *, has_regions: bool = False,
     parameters, the optimizer's moments and its schedule count stay as
     they were (the JAX step's ``jnp.where(isfinite(loss), new, old)`` over
     the whole state); deciding it costs one host sync per step, and
-    ``step.skipped`` counts such steps. ``step.timer`` (an engine
-    ``PhaseTimer``, or None; settable later) brackets the phases
-    "forward_loss", "backward" and "optimizer". With ``group`` the
+    ``step.skipped`` counts such steps. ``step.timer`` (a
+    ``utils.profiling.PhaseTimer``, or None; settable later) brackets the
+    phases "forward_loss", "backward" and "optimizer". With ``group`` the
     watchdog reads the global loss, so every rank skips together (a
     ``loss_fn`` given here must take its global terms over the same
     group)."""
@@ -91,16 +91,16 @@ def make_train_step(network, optimizer, *, has_regions: bool = False,
              ) -> torch.Tensor:
         network.train()
         optimizer.zero_grad()
-        with timed_phase(step.timer, "forward_loss"):
+        with phase(step.timer, "forward_loss"):
             _, loss = forward_loss(network, loss_fn, weights, data, targets)
-        with timed_phase(step.timer, "backward"):
+        with phase(step.timer, "backward"):
             loss.backward()
         loss = loss.detach()
         if group is not None:
-            with timed_phase(step.timer, "all_reduce"):
+            with phase(step.timer, "all_reduce"):
                 average_gradients_(params, group)
                 loss = global_mean_(loss.clone(), group)
-        with timed_phase(step.timer, "optimizer"):
+        with phase(step.timer, "optimizer"):
             if skip_nonfinite and not bool(torch.isfinite(loss)):
                 optimizer.zero_grad()
                 step.skipped += 1
@@ -147,8 +147,3 @@ def make_val_step(network, *, num_heads: int, has_regions: bool = False,
 
     return step
 
-
-def timed_phase(timer, name: str):
-    """``timer.phase(name)`` (CUDA events, inference.engine.PhaseTimer), or
-    nothing without a timer."""
-    return timer.phase(name) if timer is not None else contextlib.nullcontext()

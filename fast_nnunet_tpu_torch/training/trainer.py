@@ -66,7 +66,7 @@ from ..parallel import distributed as pdist
 from ..parallel.collectives import broadcast_
 from ..utils.io import isfile, join, load_json, maybe_mkdir_p, save_json
 from ..utils.misc import generate_crossval_split
-from ..utils.profiling import environment_summary
+from ..utils.profiling import environment_summary, phase
 from .augment import (TrainingAugmenter, ValidationAugmenter,
                       configure_rotation_dummyDA_mirroring_and_initial_patch_size)
 from .checkpoint import load_checkpoint as load_ckpt_file
@@ -78,7 +78,7 @@ from .logger import NNUNetLogger
 from .losses import loss_of_kind
 from .optimizers import nnunet_sgd
 from .schedules import poly_lr
-from .train_step import make_train_step, make_val_step, timed_phase
+from .train_step import make_train_step, make_val_step
 
 
 class NNUNetTrainer:
@@ -159,8 +159,9 @@ class NNUNetTrainer:
         self.dataloader_train = None
         self.dataloader_val = None
         self.log_file = None
-        #: optional inference.engine.PhaseTimer: the loop brackets "data"
-        #: (waiting for the next batch) and "h2d", the step its own phases
+        #: optional utils.profiling.PhaseTimer: next_batch brackets "data"
+        #: (blocked on the loader) and "h2d" and counts "loader_ready", the
+        #: step its own phases
         self.timer = None
 
     # ------------------------------------------------------------------ setup
@@ -379,9 +380,12 @@ class NNUNetTrainer:
         return data, targets
 
     def next_batch(self, loader):
-        with timed_phase(self.timer, "data"):
+        timer = self.timer
+        if timer is not None and isinstance(loader, AsyncBatchIterator):
+            timer.count("loader_ready", loader.queue.qsize())
+        with phase(timer, "data"):
             batch = next(loader)
-        with timed_phase(self.timer, "h2d"):
+        with phase(timer, "h2d"):
             return self.batch_to_device(batch)
 
     # ------------------------------------------------------------------ loop

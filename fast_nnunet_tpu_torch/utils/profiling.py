@@ -1,13 +1,20 @@
 """Profiling hooks — the port of fast_nnunet_tpu/utils/profiling.py.
 
-- :class:`PhaseTimer`: accumulating wall-clock timers per phase, JAX's API
-  (``phase``, ``summary``, ``report``). Host time only: the sweeps' device
-  phases are timed by ``inference.engine.PhaseTimer`` (CUDA events).
+- :class:`PhaseTimer`: the program's one tracer. ``phase(name)`` adds the
+  block's host time to its name and, on a CUDA device, records a CUDA-event
+  pair on the current stream; ``count(name, n)`` adds to a counter;
+  ``totals()`` sums them per name. JAX's ``summary`` and ``report`` read
+  the host totals.
+- :func:`phase`: what the program's layers call, ``phase(timer, name)``:
+  the timer's span, or without a timer a ``torch.profiler.record_function``
+  while a profiler records, else a shared null context. Counters are the
+  timer's alone (``if timer is not None: timer.count(...)``).
 - :func:`maybe_trace`: a ``torch.profiler`` trace (CPU and, where there is a
   card, CUDA activities) of a region when ``FNNT_PROFILE_DIR`` or the
   argument names a directory, the variable JAX's ``maybe_jax_trace`` reads.
   It writes a Chrome trace ``*.pt.trace.json.gz`` there, which
-  ``utils.trace_analysis.attribute_trace`` reads.
+  ``utils.trace_analysis.attribute_trace`` reads. The program's phases show
+  in it as ``user_annotation`` events, on the profiler's clock.
 - :func:`environment_summary`: the debug.json environment dump (ref
   nnUNetTrainer.py:268-301), with the torch and CUDA versions and the
   card's name.
@@ -22,27 +29,82 @@ from typing import Dict, Optional
 
 import torch
 
+#: True while a torch profiler records (the autograd profiler's own flag)
+_profiling = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+def phase(timer: Optional["PhaseTimer"], name: str, events: bool = True):
+    """``timer.phase(name, events)``; without a timer, the phase's
+    ``record_function`` while a torch profiler records, else a null
+    context."""
+    if timer is not None:
+        return timer.phase(name, events)
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NULL
+
 
 class PhaseTimer:
-    """Accumulating per-phase wall timers: with timer.phase('fwd'): ..."""
+    """Phase times and counters, summed per name in memory, from one thread.
+
+    ``phase(name)`` adds the block's host ``time.perf_counter_ns()`` time to
+    its name. Where CUDA is available a phase also records a CUDA-event pair
+    on the current stream, unless the call passes ``events=False`` (host
+    work). While a torch profiler records, a phase also enters
+    ``record_function(name)``. ``totals()`` synchronizes once and returns
+    device-event ms per name, ``host:<name>`` host ms per name and
+    ``count:<name>`` per counter."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self.events = torch.cuda.is_available()
+        #: {name: [host ms, phases]}
+        self.host: Dict[str, list] = {}
+        self.counters: Dict[str, int] = defaultdict(int)
+        self._events: list = []
 
     @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
+    def phase(self, name: str, events: bool = True):
+        t0 = time.perf_counter_ns()
+        pair = None
         try:
-            yield
+            with torch.profiler.record_function(name) if _profiling() \
+                    else _NULL:
+                if events and self.events:
+                    pair = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                    pair[0].record()
+                try:
+                    yield
+                finally:
+                    if pair is not None:
+                        pair[1].record()
+                        self._events.append((name, *pair))
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            acc = self.host.setdefault(name, [0.0, 0])
+            acc[0] += (time.perf_counter_ns() - t0) / 1e6
+            acc[1] += 1
+
+    def count(self, name: str, n: int) -> None:
+        self.counters[name] += int(n)
+
+    def totals(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        if self.events:
+            torch.cuda.synchronize()
+        for name, s, e in self._events:
+            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        for name, (ms, _) in self.host.items():
+            out["host:" + name] = ms
+        for name, n in self.counters.items():
+            out["count:" + name] = n
+        return out
 
     def summary(self) -> Dict[str, dict]:
-        return {k: {"total_s": round(v, 4), "count": self.counts[k],
-                    "mean_ms": round(1000 * v / max(self.counts[k], 1), 3)}
-                for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])}
+        return {k: {"total_s": round(ms / 1e3, 4), "count": n,
+                    "mean_ms": round(ms / max(n, 1), 3)}
+                for k, (ms, n) in sorted(self.host.items(),
+                                         key=lambda kv: -kv[1][0])}
 
     def report(self) -> str:
         return "\n".join(f"  {k:<24s} {v['total_s']:>9.2f}s  x{v['count']:<6d} "

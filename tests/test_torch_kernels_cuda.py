@@ -684,6 +684,49 @@ def test_streamed_host_route_launches_kernels_from_pinned_buffers(
     assert (masks["cuda"] == masks["cpu"]).mean() >= 0.999
 
 
+# ------------------------------------------- the tracer on the device route
+def test_served_study_keeps_the_tracer_totals(cuda_device):
+    """A served study on the device route with the tracer installed: the
+    CUDA-event phases the benchmark reads keep their names, each with its
+    host time, the host-only "predict_volume" holds them, and the counters
+    read the tiles and the mask's pageable copy."""
+    from fast_nnunet_tpu_torch.inference.engine import PhaseTimer
+    from fast_nnunet_tpu_torch.inference.turbo import (TurboConfig,
+                                                       TurboPipeline)
+    from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
+                                                  random_plain_params)
+    cfg = TurboConfig(patch_size=(32, 32, 32), target_spacing=(1.0, 1.1, 1.05),
+                      mean=127.475, std=318.463, lower_bound=-1024.0,
+                      upper_bound=3071.0, num_classes=K)
+    vol = np.full((40, 120, 44), -1024, np.int16)
+    vol[4:36, 10:60, 6:40] = (np.random.RandomState(9).rand(32, 50, 34)
+                              * 900 - 100).astype(np.int16)
+    net = make_s2d_engine_net(ARCH, K, 1, compute_dtype=torch.bfloat16).to(
+        cuda_device)
+    s2d = net.convert_params(random_plain_params(ARCH, 1, K, seed=0))
+    eng = SlidingWindowEngine(net, cfg.patch_size, K,
+                              sweep_acc_dtype=torch.bfloat16, tile_batch=4,
+                              device=cuda_device)
+    pipe = TurboPipeline(eng, cfg, air_skip=True)
+    pipe.predict_volume(s2d, vol, (1.0, 1.0, 1.0))          # warm
+    eng.timer = PhaseTimer()
+    try:
+        mask = pipe.predict_volume(s2d, vol, (1.0, 1.0, 1.0))
+        totals = eng.timer.totals()
+    finally:
+        eng.timer = None
+    phases = ("upload", "preprocess", "forward", "accumulate", "finalize",
+              "revert", "d2h")
+    device = {k for k in totals if ":" not in k}
+    assert device == set(phases)
+    assert all(totals[k] > 0 and totals["host:" + k] > 0 for k in phases)
+    assert sum(totals["host:" + k] for k in phases) <= \
+        totals["host:predict_volume"]
+    assert totals["count:d2h_pageable_bytes"] == mask.nbytes
+    assert 0 < totals["count:tiles_kept"] <= totals["count:tiles_forwarded"]
+    assert totals["count:tiles_forwarded"] % 4 == 0
+
+
 # ------------------------------------------- slab-parallel sweeps (sharded)
 @pytest.mark.parametrize("acc_dtype", ["bfloat16", "float32"])
 def test_kernels_c_b_d_at_slab_local_origins(cuda_device, acc_dtype):
