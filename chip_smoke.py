@@ -7,7 +7,7 @@ the card. Run from the repository root:
 
 1. Prints the card (``nvidia-smi`` name and power limit), builds the
    hand-written kernels from fast_nnunet_tpu_torch/csrc (timed) and prints
-   what ptxas reports for kernels A, B and C (registers, static shared
+   what ptxas reports for kernels A, B, C and E (registers, static shared
    memory, spills, stack).
 2. s2d main path at full width: the bone_turbo r=2 distilled student (6
    stages, features 16..160, 61 classes; seeded random weights in the JAX
@@ -16,14 +16,15 @@ the card. Run from the repository root:
    with the engine INI's settings (bf16 compute and accumulator, tile batch
    8, air skipping on). One warm run, then timed runs; the first timed run
    is split into phases by CUDA events and its kernel launch counts are read
-   (kernels A, B and C must have launched).
-3. Kernels A, B, C at that path's shapes, on tensors taken from it, against
-   their plain PyTorch versions (A within f32 summation tolerance, B and C
-   bit for bit, C in both accumulator modes), timed beside their bound, their
+   (kernels A, B, C and E must have launched).
+3. Kernels A, B, C and E at that path's shapes, on tensors taken from it,
+   against their plain PyTorch versions (A within f32 summation tolerance,
+   B, C and E bit for bit, C in both accumulator modes; E on the stage-0
+   conv output with groups 8), timed beside their bound, their
    plain version and, where one exists, a library call; A, B and C with
    their launch plans, C with whether its features took the 16-byte path.
-   Every ``ms`` is CUDA events around calls launched from Python; kernel A
-   adds ``device_ms``, the same calls replayed from a CUDA graph (its
+   Every ``ms`` is CUDA events around calls launched from Python; kernels A
+   and E add ``device_ms``, the same calls replayed from a CUDA graph (its
    smaller calls take less than their Python launch), both over copies of
    its input that together exceed the L2.
 4. Plain full-res path at full width (bench.py's plain contract): the same
@@ -567,7 +568,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
     for fn, v in sorted(_build.ptxas_report("_kernel").items()):
         if any(k in fn for k in ("s2d_accumulate", "grouped_argmax",
-                                 "spatial_sum_sumsq")):
+                                 "spatial_sum_sumsq", "norm_apply")):
             print(f"build: ptxas {fn}: {v.get('registers')} registers, "
                   f"{v.get('static_smem')} B static shared memory, "
                   f"{v.get('spill_stores')} B spill stores, "
@@ -764,9 +765,11 @@ def phase2_kernels():
     from fast_nnunet_tpu_torch.ops import finalize as kb
     from fast_nnunet_tpu_torch.ops import s2d_accumulate as kc
     from fast_nnunet_tpu_torch.ops import stats as ka
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
     return {"spatial_sum_sumsq": ka.spatial_sum_sumsq,
             "grouped_argmax": kb.grouped_argmax,
-            "s2d_accumulate": kc.s2d_accumulate}
+            "s2d_accumulate": kc.s2d_accumulate,
+            "norm_apply": ke.norm_apply}
 
 
 def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
@@ -793,7 +796,8 @@ def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
         return real_b(acc, num_classes, n_rows, row_base, n_zero)
 
     def grab(module, inputs, output):  # returns None: output unchanged
-        cap.setdefault("a", output)
+        if "a" not in cap:  # a copy: kernel E overwrites the conv output
+            cap["a"] = output.clone()
 
     hook = net.encoder["stage_0"]["block_0"].conv.register_forward_hook(grab)
     engine_module.s2d_accumulate, engine_module.grouped_argmax = c, b
@@ -828,6 +832,13 @@ def kernel_checks(torch, cap, engine, launches, kb, kc):
         "launches": launches["spatial_sum_sumsq"],
         "tolerance": "|d| <= 1e-5 * sum|x| + 1e-6 (sum), 1e-5 * sumsq + 1e-6 "
                      "(sumsq)", **a})
+
+    # ----------------------------- kernel E on the same stage-0 conv output
+    rows.append({
+        "name": "norm_apply", "route": "cuda",
+        "source": "fast_nnunet_tpu_torch/csrc/norm_apply.cu",
+        "replaces": None, "launches": launches["norm_apply"],
+        "tolerance": "bit-exact", **kernel_e_at(torch, cap["a"], 8)})
 
     # ---------------------------------------------------- kernel C (both modes)
     def c_pair(acc_in, g):
@@ -974,6 +985,63 @@ def kernel_a_at(torch, x, launches):
             "bytes": nbytes, "ops": 3 * x.numel(), "rows": rows,
             "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}",
             "plan": {k: plan[k] for k in ("k", "chunk", "vec", "blocks")}}
+
+
+def kernel_e_at(torch, x, groups, slope=0.01):
+    """Kernel E on x (an s2d conv output) with its norm's moments from
+    kernel A, seeded scale and bias and the LeakyReLU, timed as kernel A is
+    (``ms`` from Python, ``device_ms`` from a CUDA graph, over copies beyond
+    the L2, out of place) and held against its plain version bit for bit.
+    The plain version is the torch sequence the s2d forward ran before the
+    kernel, so it is the ``library_ms`` too. Bytes: 2 B in and 2 B out per
+    bf16 element."""
+    import itertools
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    from fast_nnunet_tpu_torch.ops import stats as ka
+    B, C8 = x.shape[0], x.shape[1]
+    c = C8 // groups
+    s, q = ka.spatial_sum_sumsq(x)
+    n = x[0, 0].numel() * groups
+    mean = s.reshape(B, groups, c).sum(1) / n
+    var = torch.clamp(q.reshape(B, groups, c).sum(1) / n - mean * mean,
+                      min=0.0)
+    rstd = torch.rsqrt(var + 1e-5)
+    g = torch.Generator().manual_seed(0)
+    scale = (torch.rand(c, generator=g) + 0.5).to(x.device)
+    bias = (torch.randn(c, generator=g) * 0.3).to(x.device)
+    xs = l2_cold_copies(torch, x)
+    out = torch.empty_like(x)
+    cyc = itertools.cycle(xs)
+
+    def run():
+        return ke.norm_apply(next(cyc), mean, rstd, scale, bias, groups,
+                             slope, out=out)
+
+    ms = time_ms(torch, run, n=20)
+    device_ms = time_graph_ms(torch, run)
+    del xs, cyc, out
+    torch.cuda.empty_cache()
+    got = ke.norm_apply(x, mean, rstd, scale, bias, groups, slope)
+    want = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, slope)
+    same = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    del got
+    check(same, f"kernel E at {tuple(x.shape)} differs from its plain "
+          f"version (max abs err {err})")
+    plain = time_ms(torch, lambda: ke.norm_apply_plain(
+        x, mean, rstd, scale, bias, groups, slope), n=5, warmup=1)
+    nbytes = 2 * x.numel() * x.element_size()
+    bms, bby = bound(nbytes, 5 * x.numel())
+    plan = ke.launch_plan(B * C8, x[0, 0].numel(), x.element_size(),
+                          x.data_ptr() % 16 == 0)
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain, "library_ms": plain, "bound_ms": bms,
+            "bound_by": bby, "bound_share": bms / ms,
+            "device_bound_share": bms / device_ms, "bytes": nbytes,
+            "ops": 5 * x.numel(),
+            "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}, "
+                     f"groups {groups}, LeakyReLU {slope}",
+            "plan": dict(plan)}
 
 
 def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):

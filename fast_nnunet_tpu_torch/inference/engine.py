@@ -76,6 +76,7 @@ from ..device import resolve_device
 from ..models import s2d as s2d_model
 from ..models import unet as unet_model
 from ..ops.finalize import grouped_argmax
+from ..ops.norm_apply import norm_apply
 from ..ops.s2d_accumulate import s2d_accumulate, seg_head_blocks
 from ..ops.scatter_accumulate import MAX_TILES, fused_scatter_accumulate
 from ..ops.sliding_window import (compute_gaussian,
@@ -1192,6 +1193,7 @@ class S2DChunks:
         self.K = eng.num_classes
         self.plane = tuple(vol_shape[1:])
         self.nets = eng._folds[1] or [eng.network]
+        self.norms = sum(net.norm_count() for net in self.nets)
         self.acc_dtype = eng.sweep_acc_dtype
         self.g_s2d = eng.gaussian_s2d(self.acc_dtype)
         if len(self.nets) == 1:
@@ -1233,6 +1235,7 @@ class S2DChunks:
             if timer is not None:
                 timer.count("tiles_kept", int(valid.sum()))
                 timer.count("tiles_forwarded", len(valid))
+                fused = norm_apply.launches
             with eng.phase("forward"):
                 tiles = torch.stack([vol[:, x0:x0 + p0, y:y + py, z:z + pz]
                                      for _, y, z in self.coords_b[bi]])
@@ -1244,6 +1247,10 @@ class S2DChunks:
                         out = out + eng.fold_forward(
                             i, tiles, s2d_output=True).float()
                     out = out / len(self.nets)
+                if timer is not None:
+                    # kernel E's launches against the norms the folds ran
+                    timer.count("norms_fused", norm_apply.launches - fused)
+                    timer.count("norms", self.norms)
             with eng.phase("accumulate"):
                 if len(self.nets) == 1:
                     s2d_accumulate(acc, out, self.g_s2d, self.w_blocks,

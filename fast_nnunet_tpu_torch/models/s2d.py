@@ -29,7 +29,11 @@ Pallas stats path, which the port always takes. Traced (``torch.export``,
 ``fnn_torch::s2d_instance_norm``, whose eager body launches kernel A: an
 AOTInductor package (inference/aot.py) calls it back, so kernel A is never
 replaced by an Inductor reduction and each norm rounds as in eager. Eager
-calls the function itself (no dispatcher round trip).
+calls the function itself (no dispatcher round trip) with the block's
+LeakyReLU: kernel E (ops/norm_apply.py) applies the moments, the affine and
+the activation in one pass over the conv output, in place. The op applies
+no activation (kernel E without it; the LeakyReLU stays in the graph), so a
+package's graph is the same and each block gives the eager bits.
 """
 import math
 from typing import Optional, Sequence, Tuple
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.norm_apply import norm_apply
 from ..ops.stats import spatial_sum_sumsq
 
 _OFFSETS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
@@ -138,13 +143,17 @@ def expand_seg_head(W: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------------ instance norm
 def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float, groups: int = 1,
-                  stats_min_voxels: int = STATS_MIN_VOXELS) -> torch.Tensor:
+                  stats_min_voxels: int = STATS_MIN_VOXELS,
+                  slope: Optional[float] = None) -> torch.Tensor:
     """InstanceNorm over the spatial dims of an NCDHW tensor. With groups=8
     the channels are (offset, logical) pairs and the statistics pool over
     the offsets too — full-resolution InstanceNorm in the s2d layout.
     ``scale``/``bias`` are per logical channel. At >= stats_min_voxels
     spatial voxels the moments come from kernel A (one pass, f32); below it
-    from the two-pass mean/var of fast_nnunet_tpu's default path."""
+    from the two-pass mean/var of fast_nnunet_tpu's default path. Kernel E
+    (ops/norm_apply.py) applies them. With ``slope`` (a block's eager
+    forward) LeakyReLU(slope) follows in the same pass and the result
+    overwrites x, the block's conv output, which nothing else reads."""
     B, C8 = x.shape[0], x.shape[1]
     c = C8 // groups
     n_spatial = math.prod(x.shape[2:])
@@ -164,14 +173,8 @@ def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             mean = mean_c.reshape(B, groups, c).mean(1)
             var = ((var_c + mean_c * mean_c).reshape(B, groups, c).mean(1)
                    - mean * mean)
-    shape = (B, C8) + (1,) * (x.dim() - 2)
-    m = mean.repeat(1, groups).reshape(shape)
-    r = torch.rsqrt(var + eps).repeat(1, groups).reshape(shape)
-    sc = scale.float().repeat(groups).reshape((1, C8) + (1,) * (x.dim() - 2))
-    bi = bias.float().repeat(groups).reshape(sc.shape)
-    y = x.to(torch.float32, copy=True)
-    y.sub_(m).mul_(r).mul_(sc).add_(bi)
-    return y.to(x.dtype)
+    return norm_apply(x, mean, torch.rsqrt(var + eps), scale, bias, groups,
+                      slope, None if slope is None else x)
 
 
 @torch.library.custom_op("fnn_torch::s2d_instance_norm", mutates_args=())
@@ -181,9 +184,9 @@ def instance_norm_op(x: torch.Tensor, scale: torch.Tensor,
     """:func:`instance_norm` as one dispatcher op: what a traced network
     (``torch.export``, an AOTInductor package, inference/aot.py) holds in
     place of the norm's arithmetic, so a package computes each norm with
-    the eager kernels (kernel A, the f32 affine) and its masks follow the
-    eager network's; Inductor's own reductions and fused affine round
-    differently."""
+    the eager kernels (kernel A, kernel E without the activation) and its
+    masks follow the eager network's; Inductor's own reductions and fused
+    affine round differently."""
     return instance_norm(x, scale, bias, eps, groups, stats_min_voxels)
 
 
@@ -224,11 +227,12 @@ class _Block(nn.Module):
         if self.pre_pad is not None:
             x = F.pad(x, self.pre_pad)
         x = self.conv(x)
-        norm = instance_norm_op if torch.compiler.is_compiling() \
-            else instance_norm
-        x = norm(x, self.norm.weight, self.norm.bias, self.eps,
-                 self.groups, self.stats_min_voxels)
-        return F.leaky_relu_(x, self.slope)
+        if torch.compiler.is_compiling():
+            x = instance_norm_op(x, self.norm.weight, self.norm.bias,
+                                 self.eps, self.groups, self.stats_min_voxels)
+            return F.leaky_relu_(x, self.slope)
+        return instance_norm(x, self.norm.weight, self.norm.bias, self.eps,
+                             self.groups, self.stats_min_voxels, self.slope)
 
 
 class _SegHead(nn.Module):
@@ -417,6 +421,10 @@ class S2DPlainConvUNet(nn.Module):
         for m in self.modules():
             if isinstance(m, _Block):
                 m.stats_min_voxels = int(n)
+
+    def norm_count(self) -> int:
+        """The InstanceNorms one forward applies (one per conv block)."""
+        return sum(isinstance(m, _Block) for m in self.modules())
 
 
 def _convert_block(blk, kernel_fn, tile: bool):

@@ -68,6 +68,10 @@ SIGNATURES = {
     # x_lo, x_hi, y_lo, y_hi, stream
     "fnn_scatter_accumulate": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                _i, _i, _i, _i, _i, _i, _i, _p],
+    # x, y, dtype, rows, S, C8, c, threads, chunks, vec, mean, rstd, scale,
+    # bias, act, slope, stream
+    "fnn_norm_apply": [_p, _p, _i, _ll, _ll, _i, _i, _i, _i, _i, _p, _p, _p,
+                       _p, _i, ctypes.c_float, _p],
 }
 
 HOST_SOURCE = os.path.join(CSRC, "host_ops.cpp")

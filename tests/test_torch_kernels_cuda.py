@@ -725,6 +725,8 @@ def test_served_study_keeps_the_tracer_totals(cuda_device):
     assert totals["count:d2h_pageable_bytes"] == mask.nbytes
     assert 0 < totals["count:tiles_kept"] <= totals["count:tiles_forwarded"]
     assert totals["count:tiles_forwarded"] % 4 == 0
+    # one kernel E launch per norm of every forward
+    assert totals["count:norms_fused"] == totals["count:norms"] > 0
 
 
 # ------------------------------------------- slab-parallel sweeps (sharded)
@@ -828,6 +830,112 @@ def test_s2d_norm_op_bit_equals_the_eager_norm(cuda_device, shape):
     assert spatial_sum_sumsq.launches == n0 + 1
     want = instance_norm(x, scale, bias, 1e-5, 8, 4096)
     assert torch.equal(got, want) and got.dtype == torch.bfloat16
+
+
+# ------------------------------------------- kernel E: the norm's apply
+# the bone_turbo student's norms at tile batch 8: (B, C8, *spatial), groups
+E_SHAPES = [
+    ((8, 128, 80, 48, 48), 8),   # stage 0 and the last decoder stage
+    ((8, 128, 80, 48, 48), 1),
+    ((8, 32, 80, 48, 48), 1),
+    ((8, 64, 40, 24, 24), 1),
+    ((8, 128, 20, 12, 12), 1),   # 2880-voxel rows, below kernel A's gate
+    ((8, 160, 10, 6, 6), 1),     # 360
+    ((8, 160, 5, 3, 3), 1),      # 45: not whole 16-byte units
+    ((8, 16, 5, 3, 3), 8),
+    ((2, 16, 7, 5, 3), 8),       # 105
+]
+
+
+def _e_inputs(shape, groups, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B, C8 = shape[:2]
+    c = C8 // groups
+    x = (torch.randn(shape, generator=g) * 3 + 0.7).to(device, torch.bfloat16)
+    mean = (torch.randn(B, c, generator=g) + 0.7).to(device)
+    rstd = (torch.rand(B, c, generator=g) * 0.5 + 0.2).to(device)
+    scale = (torch.rand(c, generator=g) + 0.5).to(device)
+    bias = (torch.randn(c, generator=g) * 0.3).to(device)
+    return x, mean, rstd, scale, bias
+
+
+@pytest.mark.parametrize("shape,groups", E_SHAPES)
+def test_norm_apply_bit_equals_plain(cuda_device, shape, groups):
+    """Kernel E against its plain version bit for bit at every serving norm
+    shape, with and without the LeakyReLU, out of place and in place."""
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    x, mean, rstd, scale, bias = _e_inputs(shape, groups, cuda_device)
+    for slope in (None, 0.01):
+        want = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, slope)
+        n0 = ke.norm_apply.launches
+        got = ke.norm_apply(x, mean, rstd, scale, bias, groups, slope)
+        assert ke.norm_apply.launches == n0 + 1
+        assert torch.equal(got, want)
+    xi = x.clone()
+    got = ke.norm_apply(xi, mean, rstd, scale, bias, groups, 0.01, out=xi)
+    assert got is xi and torch.equal(xi, want)
+    assert (want < 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_apply_misaligned_and_f32(cuda_device, dtype):
+    """A base off 16 bytes takes the element path, f32 the 4-wide one; both
+    bit for bit."""
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    x, mean, rstd, scale, bias = _e_inputs((2, 16, 8, 8, 8), 8, cuda_device)
+    x = x.to(getattr(torch, dtype))
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xm = flat[1:].view(x.shape).copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    for v in (x, xm):
+        want = ke.norm_apply_plain(v, mean, rstd, scale, bias, 8, 0.01)
+        assert torch.equal(ke.norm_apply(v, mean, rstd, scale, bias, 8,
+                                         0.01), want)
+
+
+STUDENT_ARCH = {"n_stages": 6, "features_per_stage": [16, 32, 64, 128, 160,
+                                                      160],
+                "kernel_sizes": [[3, 3, 3]] * 6,
+                "strides": [[1, 1, 1]] + [[2, 2, 2]] * 5,
+                "n_conv_per_stage": [2] * 6,
+                "n_conv_per_stage_decoder": [2] * 5}
+
+
+def test_s2d_forward_bit_equals_the_former_eager_norms(cuda_device,
+                                                      monkeypatch):
+    """The bone_turbo student's s2d forward at its tile batch and patch
+    (every serving norm shape): kernel E launched once per block, features
+    bit for bit those of the former eager block (conv, the norm's torch
+    passes, LeakyReLU)."""
+    import torch.nn.functional as F
+    from fast_nnunet_tpu_torch.models import s2d
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    from .test_torch_norm_apply import former_norm
+    net = s2d.make_s2d_engine_net(STUDENT_ARCH, K, 1,
+                                  compute_dtype=torch.bfloat16)
+    s2d.params_from_jax(net, net.convert_params(
+        s2d.random_plain_params(STUDENT_ARCH, 1, K, seed=0)))
+    net.to(cuda_device).eval()
+    x = torch.randn(8, 1, 160, 96, 96, generator=torch.Generator(
+        ).manual_seed(1)).to(cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        n0 = ke.norm_apply.launches
+        got = net(x, return_features=True)
+        assert ke.norm_apply.launches - n0 == net.norm_count() == 22
+
+        def former_forward(self, v):
+            if self.pre_pad is not None:
+                v = F.pad(v, self.pre_pad)
+            v = self.conv(v)
+            v = former_norm(v, self.norm.weight, self.norm.bias, self.eps,
+                            self.groups, self.stats_min_voxels)
+            return F.leaky_relu_(v, self.slope)
+
+        monkeypatch.setattr(s2d._Block, "forward", former_forward)
+        n0 = ke.norm_apply.launches
+        want = net(x, return_features=True)
+        assert ke.norm_apply.launches == n0
+    assert torch.equal(got, want)
 
 
 def test_packaged_s2d_forward_launches_kernel_a(cuda_device, tmp_path):

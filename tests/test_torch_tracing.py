@@ -214,6 +214,21 @@ def test_tile_counters_without_air_skipping(timed):
         coords_b.shape[1]
 
 
+def test_norm_counters_count_every_block_of_every_forward(timed):
+    """``norms`` is the network's blocks times its forwards; on the CPU no
+    norm launches kernel E, so ``norms_fused`` stays 0 (on the card it
+    equals ``norms``: tests/test_torch_kernels_cuda.py)."""
+    eng, tree, t = timed
+    pipe = TurboPipeline(eng, TurboConfig(**CFG), air_skip=True)
+    pipe.predict_volume(tree, *_air_ct())
+    tot = t.totals()
+    blocks = eng.network.norm_count()
+    assert blocks == sum(ARCH["n_conv_per_stage"]) + \
+        sum(ARCH["n_conv_per_stage_decoder"])
+    assert tot["count:norms"] == blocks * t.host["forward"][1] > 0
+    assert tot.get("count:norms_fused", 0) == 0
+
+
 def test_mask_bytes_count_as_pageable_on_the_device_route(timed):
     eng, tree, t = timed
     mask = TurboPipeline(eng, TurboConfig(**CFG)).predict_volume(
