@@ -4,6 +4,9 @@ setting its limits (PERF.md says which reading set which limit):
     python3 benchmark/control.py --workload <name> --seeds 1,2,3 \\
         --mode program|control|half_batch|unchanged
 
+The cell's runner computes them (benchmark/harness/<runner>.py
+``readings``):
+
 - ``program``: the program's own readings (serving: one pass over the
   cycle, the sample a run judges; training: the first steps);
 - ``control``: the reference computed in float8 e4m3 (the nearest
@@ -20,10 +23,9 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
-import shutil  # noqa: E402
 import sys  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,51 +35,16 @@ os.environ["USE_FLAX"] = "0"
 from benchmark.harness import common  # noqa: E402
 
 
-def serve_readings(files: dict, seed: int, mode: str, device) -> dict:
-    import torch
-    from benchmark.harness import serve
-    cfg, mix = files["config"], files["traffic"]
-    pipe, s2d_tree, tree_dev = serve.build(cfg, seed, device)
-    cts = serve.studies(mix, seed, device)
-    pick = serve.sample(mix, seed, cts, range(len(cts)))
-    masks = {j: (pipe.predict_volume(s2d_tree, *cts[j])
-                 if mode == "program" else None) for j in pick}
-    del pipe, s2d_tree
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return serve.judge(cfg, [(cts[j], masks[j]) for j in pick], tree_dev,
-                       device)
-
-
-def train_readings(files: dict, seed: int, mode: str, device) -> dict:
-    import torch
-    from benchmark.harness import train
-    cfg, mix = files["config"], files["traffic"]
-    owner, student, teacher = train.roles(cfg, files.get("teacher"))
-    root = train.ensure_store(owner, device)
-    trainer, step, tree_np, results = train.build(
-        cfg, files.get("teacher"), mix, seed, device, root)
-
-    if mode == "unchanged":
-        trainer.optimizer.step = lambda: None
-
-    def half(data, targets):
-        n = data.shape[0] // 2
-        return data[:n], [t[:n] for t in targets]
-
-    rows, prog = train.first_steps(
-        trainer, step, mix, tree_np, device, teacher is not None,
-        fault=half if mode == "half_batch" else None)
-    trainer.dataloader_train.shutdown()
-    trainer.dataloader_val.shutdown()
-    del trainer, step
-    shutil.rmtree(results, ignore_errors=True)
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    return train.judge(student, teacher, tree_np, rows, prog, device,
-                       quant=mode == "control")
+def readings(runner: str):
+    """The cell's runner's ``readings(files, seed, mode, device)``:
+    benchmark/harness/<runner>.py owns its controls, as it owns its
+    ``run``."""
+    mod = importlib.import_module("benchmark.harness." + runner)
+    fn = getattr(mod, "readings", None)
+    if not callable(fn):
+        raise AttributeError(f"runner module {mod.__name__} defines no "
+                             "readings(files, seed, mode, device)")
+    return fn
 
 
 def main(argv) -> int:
@@ -93,12 +60,11 @@ def main(argv) -> int:
         return 2
     files = common.cell_files(common.benchmark_spec(), args.workload)
     dev = torch.device("cuda", 0)
-    readings = serve_readings if files["traffic"]["runner"] == "serve" \
-        else train_readings
+    read = readings(files["traffic"]["runner"])
     print("card: " + common.card_line(), flush=True)
     for s in args.seeds.split(","):
         t = time.perf_counter()
-        r = readings(files, int(s), args.mode, dev)
+        r = read(files, int(s), args.mode, dev)
         print(json.dumps({"workload": args.workload, "mode": args.mode,
                           "seed": int(s), "readings": r,
                           "seconds": time.perf_counter() - t}), flush=True)

@@ -14,9 +14,13 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .. import kernels
+
 #: H100 SXM, NVIDIA's data sheet (dense, no sparsity), at 700 W
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+#: the peak each kernel file's ``BOUND`` divides its work by
+PEAKS = {"hbm": HBM_BYTES_PER_S, "bf16": BF16_FLOPS_PER_S}
 SHAPE_BUCKET = 32            # in-plane padding of the sweep volume
 
 
@@ -214,16 +218,24 @@ def bytes_c(coords_h: np.ndarray, live: np.ndarray, p0h: int,
             + S * 8 * 4 + 8 * F * K * 4 + 8 * K * 4)
 
 
-def roofline_percent(run: dict, letter: str):
-    """A kernel's share of its byte bound over a traced slice, in %: the
-    bytes its launches need at 3.35 TB/s over its kernel time; None where
-    the trace holds no such kernel, or holds another number of launches
-    than the shapes' count (the count then does not describe the work)."""
+def bytes_e(shape, itemsize: int = 2) -> int:
+    """Kernel E: the activation read once and written once (the norm's
+    statistics and affine, a few values a channel, left out)."""
+    return 2 * math.prod(shape) * itemsize
+
+
+def roofline_percent(run: dict, kernel: str):
+    """A kernel's share of its roofline over a traced slice, in %: the work
+    its launches need (the runner's ``work[kernel] = (launches, amount)``,
+    bytes or FLOPs as the kernel file's ``BOUND`` says) at that bound's
+    peak, over its kernel time; None where the trace holds no such kernel,
+    or holds another number of launches than the shapes' count (the count
+    then does not describe the work)."""
     t, w = run.get("trace"), run.get("work")
-    if not t or not w or letter not in w or letter not in t["kernels"]:
+    if not t or not w or kernel not in w or kernel not in t["kernels"]:
         return None
-    seconds, launches = t["kernels"][letter]
-    want, nbytes = w[letter]
+    seconds, launches = t["kernels"][kernel]
+    want, amount = w[kernel]
     if launches != want or seconds <= 0:
         return None
-    return 100.0 * nbytes / HBM_BYTES_PER_S / seconds
+    return 100.0 * amount / PEAKS[kernels.registry()[kernel][1]] / seconds

@@ -9,7 +9,9 @@ study once (every shape the window will see). The window serves the cycle
 in order, again and again, and closes at the first completion at or after
 ``seconds``. A traced run keeps the engine's CUDA-event phases over the
 window and then profiles a few studies. The reference judges a sample of
-the served masks once the window has closed and the program is freed."""
+the served masks once the window has closed and the program is freed.
+``readings`` gives the same judgement without a window (benchmark/
+control.py)."""
 import gc
 import sys
 import time
@@ -64,9 +66,10 @@ def studies(mix: dict, seed: int, device):
 
 
 def work(cfg: dict, ct: np.ndarray, spacing, device) -> dict:
-    """What one study asks of the network and of kernels A, B and C,
+    """What one study asks of the network and of kernels A, B, C and E,
     counted from its geometry and the air rule: tiles kept, model FLOPs,
-    forwards, and each kernel's launches and bytes."""
+    and each kernel's launches and bytes (A and E per forward: the norms
+    whose statistics A takes, and every norm, which E applies)."""
     from ..reference import serve as ref
     sv = cfg["serving"]
     vol, geo, fill, thr = ref.preprocess(cfg, ct, spacing, device)
@@ -80,6 +83,7 @@ def work(cfg: dict, ct: np.ndarray, spacing, device) -> dict:
     runs = flags.any(axis=2)                       # (chunks, nb)
     forwards = int(runs.sum())
     a_shapes = grid.gated_norm_shapes(arch, patch, B, s2d=True)
+    e_shapes = grid.gated_norm_shapes(arch, patch, B, s2d=True, min_voxels=0)
     c_bytes = sum(
         grid.bytes_c(coords[b] // 2, flags[k, b], patch[0] // 2,
                      (patch[1] // 2, patch[2] // 2), plane_h,
@@ -97,7 +101,9 @@ def work(cfg: dict, ct: np.ndarray, spacing, device) -> dict:
             "A": (forwards * len(a_shapes),
                   forwards * sum(grid.bytes_a(s) for s in a_shapes)),
             "B": (len(steps[0]), b_bytes),
-            "C": (forwards, c_bytes)}
+            "C": (forwards, c_bytes),
+            "E": (forwards * len(e_shapes),
+                  forwards * sum(grid.bytes_e(s) for s in e_shapes))}
 
 
 def run(ctx: dict) -> dict:
@@ -153,7 +159,7 @@ def run(ctx: dict) -> dict:
         w = {j: work(cfg, *cts[j], dev) for j in sorted(set(order))}
         run_info["flops"] = sum(w[j]["flops"] for j in order)
         run_info["work"] = {k: tuple(map(sum, zip(*(w[j][k] for j in traced))))
-                            for k in ("A", "B", "C")}
+                            for k in ("A", "B", "C", "E")}
         out["busy_s"], out["trace_window_s"] = sink["busy_s"], \
             sink["window_s"]
         out["breakdown"] = {"device_ops": sink["device_ops"],
@@ -175,6 +181,25 @@ def run(ctx: dict) -> dict:
           f"{time.perf_counter() - t_ref:.3f} s: {out['readings']}",
           file=sys.stderr)
     return out
+
+
+def readings(files: dict, seed: int, mode: str, device) -> dict:
+    """The compared numbers without a window: the program serves the
+    sampled studies of one pass over the cycle (``mode`` "program"), or the
+    control, the reference in float8, serves them in its place (any other
+    mode)."""
+    import torch
+    cfg, mix = files["config"], files["traffic"]
+    pipe, s2d_tree, tree_dev = build(cfg, seed, device)
+    cts = studies(mix, seed, device)
+    pick = sample(mix, seed, cts, range(len(cts)))
+    masks = {j: (pipe.predict_volume(s2d_tree, *cts[j])
+                 if mode == "program" else None) for j in pick}
+    del pipe, s2d_tree
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return judge(cfg, [(cts[j], masks[j]) for j in pick], tree_dev, device)
 
 
 def sample(mix: dict, seed: int, cts, done) -> list:

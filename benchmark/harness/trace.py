@@ -12,12 +12,10 @@ import shutil
 import tempfile
 from typing import Dict, List, Tuple
 
+from .. import kernels
+
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function")
-
-#: the port's hand-written kernels by their symbol names
-KERNELS = {"A": "spatial_sum_sumsq_kernel", "B": "grouped_argmax_kernel",
-           "C": "s2d_accumulate_kernel"}
 
 
 def union_s(intervals: List[Tuple[float, float]]) -> float:
@@ -52,7 +50,8 @@ def profiled(torch, sink: dict):
 
 
 def read(tr: dict) -> Dict[str, object]:
-    """{"busy_s", "window_s", "kernels": {letter: (seconds, launches)},
+    """{"busy_s", "window_s", "kernels": {name: (seconds, launches)} (the
+    registered kernels, benchmark/kernels/, matched by symbol),
     "device_ops": [(name, s)] (top 10), "idle_gaps": [(name, s)] (the 10
     longest gaps, each named by the innermost host event open at its
     start)}."""
@@ -60,12 +59,13 @@ def read(tr: dict) -> Dict[str, object]:
     dev = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
     host = [e for e in events if e.get("cat") in HOST_CATEGORIES]
     spans, top = [], collections.Counter()
-    kern = {k: [0.0, 0] for k in KERNELS}
+    symbols = {k: sym for k, (sym, _) in kernels.registry().items()}
+    kern = {k: [0.0, 0] for k in symbols}
     for e in dev:
         ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((ts, ts + dur))
         top[e["name"]] += dur
-        for k, sym in KERNELS.items():
+        for k, sym in symbols.items():
             if sym in e["name"]:
                 kern[k][0] += dur / 1e6
                 kern[k][1] += 1

@@ -13,7 +13,8 @@ their rows for the reference, the momentum after the first and the
 parameters after the last; then a few more steps, then the window, which
 ends in a device sync. The peak is read over the window. A traced run
 keeps the trainer's CUDA-event phases over the window, then profiles a
-few tens of iterations."""
+few tens of iterations. ``readings`` gives the first steps' judgement
+without a window (benchmark/control.py)."""
 import gc
 import hashlib
 import json
@@ -358,6 +359,40 @@ def run(ctx: dict) -> dict:
           f"{len(rows)} steps {time.perf_counter() - t_ref:.3f} s: "
           f"{out['readings']}; losses {prog['losses']}", file=sys.stderr)
     return out
+
+
+def readings(files: dict, seed: int, mode: str, device) -> dict:
+    """The compared numbers without a window: the first steps of the
+    program (``mode`` "program"), given half of each batch
+    ("half_batch"), or with its update planted to leave the state
+    unchanged ("unchanged"); or the control's ("control"), the reference
+    in float8 following the same rows in the program's place."""
+    import torch
+    cfg, mix = files["config"], files["traffic"]
+    owner, student, teacher = roles(cfg, files.get("teacher"))
+    root = ensure_store(owner, device)
+    trainer, step, tree_np, results = build(
+        cfg, files.get("teacher"), mix, seed, device, root)
+
+    if mode == "unchanged":
+        trainer.optimizer.step = lambda: None
+
+    def half(data, targets):
+        n = data.shape[0] // 2
+        return data[:n], [t[:n] for t in targets]
+
+    rows, prog = first_steps(
+        trainer, step, mix, tree_np, device, teacher is not None,
+        fault=half if mode == "half_batch" else None)
+    trainer.dataloader_train.shutdown()
+    trainer.dataloader_val.shutdown()
+    del trainer, step
+    shutil.rmtree(results, ignore_errors=True)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return judge(student, teacher, tree_np, rows, prog, device,
+                 quant=mode == "control")
 
 
 def first_steps(trainer, step, mix: dict, tree_np, device, distill: bool,

@@ -31,6 +31,26 @@ def test_bytes_match_the_kernel_table():
                         61) == 1_522_199_968
 
 
+@pytest.mark.parametrize("shape,launches,nbytes", [
+    # PERF.md's rows of kernel E, the s2d student's norms a forward
+    ((8, 128, 80, 48, 48), 4, 754_974_720),
+    ((8, 32, 80, 48, 48), 4, 188_743_680),
+    ((8, 64, 40, 24, 24), 4, 47_185_920),
+    ((8, 128, 20, 12, 12), 4, 11_796_480),
+    ((8, 160, 10, 6, 6), 4, 1_843_200),
+    ((8, 160, 5, 3, 3), 2, 230_400),
+])
+def test_kernel_e_bytes_match_the_kernel_table(shape, launches, nbytes):
+    assert grid.bytes_e(shape) == nbytes
+    c = config("bone_turbo")
+    shapes = grid.gated_norm_shapes(c["network"], (96, 96, 160), 8, s2d=True,
+                                    min_voxels=0)
+    # engine order (the patch sorted by extent): the table's axes turned
+    engine = shape[:2] + (shape[3], shape[4], shape[2])
+    assert shapes.count(engine) == launches
+    assert len(shapes) == 22
+
+
 def test_conv_stage_flops_by_hand():
     # the teacher's stage 0 at 160x96x96, 1x3x3: 1 -> 32, 32 -> 32; its
     # stage 1 (stride 1x2x2) at 160x48x48, 3x3x3: 32 -> 64, 64 -> 64

@@ -70,7 +70,7 @@ def test_serve_fault_is_not_correct(fault):
 
 def test_serve_control_fails():
     files = tiny.serve_files()
-    r = control.serve_readings(files, 11, "control", CPU)
+    r = control.readings("serve")(files, 11, "control", CPU)
     assert not common.passed(common.checks_of(r, files["limits"]))
 
 
@@ -112,7 +112,7 @@ def test_train_fault_is_not_correct(fault):
 @pytest.mark.parametrize("mix", ["train", "distill"])
 def test_train_control_fails(mix):
     files = tiny.train_files(mix)
-    r = control.train_readings(files, 12, "control", CPU)
+    r = control.readings("train")(files, 12, "control", CPU)
     assert not common.passed(common.checks_of(r, files["limits"]))
 
 
@@ -123,6 +123,6 @@ def test_serve_control_fails_at_the_cells_size():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     files = common.cell_files(common.benchmark_spec(), "bone_turbo.serve")
-    r = control.serve_readings(files, 5001, "control",
-                               torch.device("cuda", 0))
+    r = control.readings("serve")(files, 5001, "control",
+                                  torch.device("cuda", 0))
     assert not common.passed(common.checks_of(r, files["limits"]))

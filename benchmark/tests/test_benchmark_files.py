@@ -1,12 +1,18 @@
-"""Every cell's files load by the names BENCHMARK.json gives them, and the
-file keeps to the run contract's shape."""
+"""Every cell's files load by the names BENCHMARK.json gives them (its
+runner's module with ``run`` and ``readings``, which control.py reaches),
+the kernel files register, and the file keeps to the run contract's
+shape."""
+import importlib
 import json
 import os
 import re
+import sys
+import types
 
 import pytest
 
-from benchmark.harness import common
+from benchmark import control, kernels
+from benchmark.harness import common, grid
 
 SPEC = common.benchmark_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -22,7 +28,11 @@ def test_top_level_keys():
 @pytest.mark.parametrize("w", [w["name"] for w in SPEC["workloads"]])
 def test_cell_files_load(w):
     files = common.cell_files(SPEC, w)
-    assert files["traffic"]["runner"] in ("serve", "train")
+    runner = files["traffic"]["runner"]
+    assert os.path.isfile(os.path.join(common.HERE, "harness",
+                                       runner + ".py"))
+    mod = importlib.import_module("benchmark.harness." + runner)
+    assert callable(mod.run) and callable(mod.readings)
     assert files["limits"]
     names = [m["name"] for m in files["end_to_end"]]
     assert "setup_s" in names and len(names) >= 2
@@ -54,3 +64,27 @@ def test_names_and_moves():
         for w in m["workloads"]:
             assert w in cells and w in moved.get("workloads", cells)
     assert len(json.dumps(SPEC)) < 64 * 1024
+
+
+@pytest.mark.parametrize("runner", ["serve", "train"])
+def test_control_reaches_the_runners_readings(runner):
+    mod = importlib.import_module("benchmark.harness." + runner)
+    assert control.readings(runner) is mod.readings
+
+
+def test_control_names_a_runner_without_readings(monkeypatch):
+    toy = types.ModuleType("benchmark.harness.toy_runner")
+    toy.run = lambda ctx: {}
+    monkeypatch.setitem(sys.modules, toy.__name__, toy)
+    with pytest.raises(AttributeError, match="benchmark.harness.toy_runner"):
+        control.readings("toy_runner")
+
+
+def test_kernel_files():
+    reg = kernels.registry()
+    assert {"A", "B", "C", "E"} <= set(reg)
+    for name, (symbol, bound) in reg.items():
+        assert NAME.match(name) and symbol and bound in grid.PEAKS, name
+    symbols = [s for s, _ in reg.values()]
+    # no symbol names another kernel's launches too
+    assert not [a for a in symbols for b in symbols if a != b and a in b]

@@ -1,7 +1,9 @@
 """The readers of the metrics that read the program's tracer
 (utils/profiling.py ``PhaseTimer.totals()``, which the runners keep as
 ``phases_ms``): a value from a synthetic run, and None where the run lacks
-the keys (a program without the tracer's spans and counters)."""
+the keys (a program without the tracer's spans and counters). Among them
+``s2d.norm_fused.serve``: the engine's counters ``norms_fused`` (kernel
+E's launches in the forwards) over ``norms``."""
 import pytest
 
 from benchmark.harness import common
@@ -28,7 +30,7 @@ def test_reader_value(name, want):
 
 @pytest.mark.parametrize("name", [
     "s2d.tile_yield.serve", "turbo.d2h_gbps.serve", "train.host_step_ms",
-    "train.loader_wait_ms", "train.loader_ready"])
+    "train.loader_wait_ms", "train.loader_ready", "s2d.norm_fused.serve"])
 def test_reader_without_its_keys(name):
     read = common.metric_reader(name)
     # the parent's totals: CUDA-event phases only
@@ -43,3 +45,18 @@ def test_pinned_bytes_alone_read_a_bandwidth():
                                  "count:d2h_pinned_bytes": 30_000_000}}
     assert common.metric_reader("turbo.d2h_gbps.serve")(run) == \
         pytest.approx(3.0)
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"count:norms": 660, "count:norms_fused": 660}, 100.0),
+    ({"count:norms": 660, "count:norms_fused": 330}, 50.0),
+    ({"count:norms": 660, "count:norms_fused": 0}, 0.0),
+    # no launch counted: the pass was bypassed in every forward
+    ({"count:norms": 22}, 0.0),
+    # a program with the tile counters and without the norm counters
+    ({"count:tiles_kept": 810, "count:tiles_forwarded": 1000}, None),
+])
+def test_norm_fused_share(counters, want):
+    run = {"n": 4, "phases_ms": dict({"forward": 800.0}, **counters)}
+    got = common.metric_reader("s2d.norm_fused.serve")(run)
+    assert got == (None if want is None else pytest.approx(want))
