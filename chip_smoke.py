@@ -217,17 +217,21 @@ the card. Run from the repository root:
    ``predict_single_npy_array``: its mask equal to the ``.mha`` one. One
    ``{"formats": ...}`` line.
 17. The Primus transformer (``primus:``), in phase 11's root after phase
-   16: ``fast_nnunet_train_torch 988 3d_fullres 0 -tr
+   16: ``fast_nnunet_train_torch 988 3d_fullres_primus 0 -tr
    nnUNet_Primus_M_Trainer`` at full width (embed 864, depth 16, 12 heads,
-   8^3 tokens: 2880 tokens at the planned 160x96x96 patch, batch 2, 61
-   classes, bf16 compute / f32 parameters, AdamW), one epoch of 10
-   iterations, 2 validation iterations and the final validation: fed and
-   cached seconds per iteration, CUDA-event phases, peak memory, FLOPs per
+   8^3 tokens) at Primus M's 160^3 plan (a configuration of the plans that
+   inherits 3d_fullres with patch 160^3: 8,000 tokens, batch 2, 61
+   classes, bf16 compute / f32 parameters, AdamW, the fused attention,
+   kernels F and G), one epoch of 10 iterations, 2 validation iterations
+   and the final validation: fed and cached seconds per iteration,
+   CUDA-event phases (the attention's among them), peak memory, FLOPs per
    step from the shapes and ``mfu``, kernel A launches per step (0: no
-   InstanceNorm), a finite loss falling over 10 cached steps; a NaN batch
+   InstanceNorm), F's and G's launches (16 and 2 x 16 a train step), a
+   finite loss falling over 10 cached steps; a NaN batch
    through the NaN-guarded step leaves the parameters, the AdamW moments
-   and the schedule count bit-equal; ``fast_nnunet_predict_torch -tr
-   nnUNet_Primus_M_Trainer`` on the test case through a rebuilt
+   and the schedule count bit-equal; ``fast_nnunet_predict_torch -c
+   3d_fullres_primus -tr nnUNet_Primus_M_Trainer`` on the test case
+   through a rebuilt
    ``Primus``; a small Primus cuda vs cpu in fp32 (logits 1e-4 of their
    scale, one AdamW step's parameters 1e-5). One ``{"primus": ...}``
    line.
@@ -568,7 +572,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s (nvcc {_build.nvcc_path()})")
     for fn, v in sorted(_build.ptxas_report("_kernel").items()):
         if any(k in fn for k in ("s2d_accumulate", "grouped_argmax",
-                                 "spatial_sum_sumsq", "norm_apply")):
+                                 "spatial_sum_sumsq", "norm_apply",
+                                 "attention")):
             print(f"build: ptxas {fn}: {v.get('registers')} registers, "
                   f"{v.get('static_smem')} B static shared memory, "
                   f"{v.get('spill_stores')} B spill stores, "
@@ -627,6 +632,7 @@ def main() -> int:
 
     # --------------------------------------- kernels at the main path's shapes
     rows = kernel_checks(torch, cap, engine, launches, kb, kc)
+    rows += attention_rows(torch)
     del cap
     torch.cuda.empty_cache()
     mark("build, s2d main path and its kernels (phases 1-3)")
@@ -985,6 +991,86 @@ def kernel_a_at(torch, x, launches):
             "bytes": nbytes, "ops": 3 * x.numel(), "rows": rows,
             "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}",
             "plan": {k: plan[k] for k in ("k", "chunk", "vec", "blocks")}}
+
+
+PRIMUS_ATTENTION = (2, 8000, 12, 72)   # Primus M at 160^3: B, T, H, hd
+
+
+def attention_rows(torch, shape=PRIMUS_ATTENTION):
+    """Kernels F and G (Primus's fused attention) at Primus M's 160^3 shape
+    on inputs as the network gives them (unit-norm q times a temperature of
+    10, unit-norm k, v read in place from a (B, T, 3, H, hd) qkv output),
+    against their plain version (O and each gradient within 1.5e-2 of the
+    plain tensor's largest, lse within 1e-4), timed with CUDA events (a
+    call takes milliseconds: the launch is no part of it), beside the bf16
+    bound of their useful FLOPs (4 B H T^2 hd for F, 10 for G), the plain
+    version's time and ``scaled_dot_product_attention``'s (forward; its
+    backward for G), which the port never calls."""
+    from torch.nn.functional import normalize, scaled_dot_product_attention
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    B, T, H, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = (normalize(torch.randn(shape, device="cuda", generator=g), dim=-1)
+         * 10).bfloat16()
+    k = normalize(torch.randn(shape, device="cuda", generator=g),
+                  dim=-1).bfloat16()
+    v = torch.randn(B, T, 3, H, hd, device="cuda",
+                    generator=g).bfloat16().unbind(2)[2]
+    do = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    n0, m0 = fa.attention_forward.launches, fa.attention_backward.launches
+    o, lse = fa.attention_forward(q, k, v)
+    grads = fa.attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    launches = (fa.attention_forward.launches - n0,
+                fa.attention_backward.launches - m0)
+    op, lp = fa.attention_forward_plain(q, k, v, block=500)
+    want = fa.attention_backward_plain(q, k, v, op, lp, do, block=500)
+    errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in zip((o,) + tuple(grads), (op,) + tuple(want))]
+    lse_err = float((lse - lp).abs().max())
+    check(max(errs) <= 1.5e-2 and lse_err <= 1e-4 and launches == (1, 2),
+          f"kernels F / G against plain: O, dq, dk, dv {errs}, lse "
+          f"{lse_err}, launches {launches}")
+    f_ms = time_ms(torch, lambda: fa.attention_forward(q, k, v))
+    g_ms = time_ms(torch, lambda: fa.attention_backward(q, k, v, o, lse, do))
+    plain_f = time_ms(torch, lambda: fa.attention_forward_plain(
+        q, k, v, block=500), n=2, warmup=1)
+    plain_g = time_ms(torch, lambda: fa.attention_backward_plain(
+        q, k, v, op, lp, do, block=500), n=2, warmup=1)
+    del op, lp, want
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+
+    def sdpa():
+        return scaled_dot_product_attention(qt, kt, vt, scale=1.0)
+    lib_f = time_ms(torch, lambda: sdpa().detach())
+    dot = do.transpose(1, 2)
+    lib_fg = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot))
+    flops = 4 * B * H * T * T * hd
+    rows = []
+    for name, ms, plain, lib, work, n in (
+            ("attention_fwd", f_ms, plain_f, lib_f, flops, launches[0]),
+            ("attention_bwd", g_ms, plain_g, lib_fg - lib_f, 2.5 * flops,
+             launches[1])):
+        bms = work / BF16_TENSOR_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fast_nnunet_tpu_torch/csrc/attention.cu",
+            "replaces": None, "launches": n,
+            "tolerance": "1.5e-2 of each plain tensor's largest, lse 1e-4",
+            "max_rel_err": errs[0] if name == "attention_fwd" else
+            max(errs[1:]), "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bms, "bound_by": "bf16 FLOPs",
+            "bound_share": bms / ms, "ops": work,
+            "shape": f"q, k, v {shape} bf16 (B, T, H, hd), v strided"})
+        print(f"kernels: {name} {ms:.4f} ms ({100 * bms / ms:.1f}% of the "
+              f"bf16 bound {bms:.4f} ms), plain {plain:.2f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms; launches {n}; "
+              f"errors O, dq, dk, dv {errs}, lse {lse_err:.2e}")
+    del q, k, v, do, o, lse, grads, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_e_at(torch, x, groups, slope=0.01):
@@ -2428,6 +2514,9 @@ def _pipeline(torch, dev, a_row, root, iters, warm):
 # ------------------------------------------------------------------ primus
 PRIMUS_TRAINER = "nnUNet_Primus_M_Trainer"
 PRIMUS_M = {"embed_dim": 864, "depth": 16, "num_heads": 12}
+#: Primus M's plan: 3d_fullres at a 160^3 patch (20^3 = 8,000 tokens)
+PRIMUS_CONFIG = "3d_fullres_primus"
+PRIMUS_PATCH = (160, 160, 160)
 
 
 def primus_flops(net, batch):
@@ -2477,9 +2566,19 @@ def _primus(torch, dev, iters, warm):
     from fast_nnunet_tpu_torch.training.trainer import NNUNetTrainer
     from fast_nnunet_tpu_torch.utils.io import join
 
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    from fast_nnunet_tpu_torch.utils.io import load_json, save_json
+
     ds, n = PIPELINE_DS, PIPELINE_N_TRAIN
     out = {}
-    # ---- fast_nnunet_train_torch 988 3d_fullres 0 -tr nnUNet_Primus_M_Trainer
+    # ---- the plan's 160^3 configuration, inheriting 3d_fullres
+    plans_file = join(os.environ["nnUNet_preprocessed"], ds,
+                      "nnUNetPlans.json")
+    plans = load_json(plans_file)
+    plans["configurations"][PRIMUS_CONFIG] = {
+        "inherits_from": "3d_fullres", "patch_size": list(PRIMUS_PATCH)}
+    save_json(plans, plans_file)
+    # ---- fast_nnunet_train_torch 988 3d_fullres_primus 0 -tr ...Primus_M...
     os.environ.update(FNNT_ITERS_PER_EPOCH=str(iters),
                       FNNT_VAL_ITERS_PER_EPOCH="2", FNNT_NUM_EPOCHS="1")
     cap = {}
@@ -2487,14 +2586,17 @@ def _primus(torch, dev, iters, warm):
     orig = stamp_iterations(NNUNetTrainer, "train_step", cap, warm, timer)
     torch.cuda.reset_peak_memory_stats()
     ka.spatial_sum_sumsq.launches = 0
+    f0, g0 = fa.attention_forward.launches, fa.attention_backward.launches
     t0 = time.perf_counter()
     try:
-        run_training_entry([str(PIPELINE_DS_ID), "3d_fullres", "0", "-tr",
+        run_training_entry([str(PIPELINE_DS_ID), PRIMUS_CONFIG, "0", "-tr",
                             PRIMUS_TRAINER])
     finally:
         NNUNetTrainer.run_train_iterations = orig
     train_wall = time.perf_counter() - t0
     run_launches = ka.spatial_sum_sumsq.launches
+    f_run = fa.attention_forward.launches - f0
+    g_run = fa.attention_backward.launches - g0
     trainer = cap["trainer"]
     net = trainer.network
     cm = trainer.configuration_manager
@@ -2507,7 +2609,7 @@ def _primus(torch, dev, iters, warm):
     dims = {"embed_dim": net.embed_dim, "depth": net.depth,
             "num_heads": net.num_heads}
     check(dims == PRIMUS_M and net.patch_embed_size == (8, 8, 8)
-          and net.patch_size == tuple(PIPELINE_3D_FULLRES["patch_size"])
+          and net.patch_size == PRIMUS_PATCH
           and cm.batch_size == 2 and net.num_classes == TRAIN_K,
           f"Primus M at {dims}, tokens {net.patch_embed_size}, patch "
           f"{net.patch_size}, batch {cm.batch_size}, {net.num_classes} "
@@ -2532,12 +2634,19 @@ def _primus(torch, dev, iters, warm):
           f"{tl['val_losses'][0]:.4f}")
     check(all(k == 0 for k in cap["step_launches"]) and run_launches == 0,
           f"Primus launched kernel A: {cap['step_launches']}")
+    # every train step's 16 blocks run F forward and G's two passes
+    # backward; validation and the final validation add F alone
+    print(f"primus: kernel F launches {f_run}, kernel G launches {g_run} "
+          f"over the run ({iters} train steps: G {2 * net.depth * iters})")
+    check(g_run == 2 * net.depth * iters and f_run >= net.depth * iters,
+          f"fused attention launches F {f_run}, G {g_run}")
     check(np.isfinite(tl["train_losses"][0]) and
           np.isfinite(tl["val_losses"][0]),
           f"non-finite losses {tl['train_losses']} {tl['val_losses']}")
     out.update(train_wall_s=train_wall, fed_s_per_iter=fed,
                phases_ms=phases, peak_gib_train=cap["peak_bytes"] / 2**30,
                kernel_a_launches_per_step=cap["step_launches"],
+               attention_launches={"F": f_run, "G": g_run},
                parameters=n_params, tokens=math.prod(net.grid))
 
     # ---- cached: one device batch through the NaN-guarded step, lr 3e-4
@@ -2568,9 +2677,9 @@ def _primus(torch, dev, iters, warm):
     mfu_fed = flops / fed / BF16_TENSOR_OPS_PER_S
     print(f"primus: warm seconds per iteration fed {fed:.4f}, cached "
           f"{cached:.4f} (one device batch, {10 - warm} steps); peak device "
-          f"memory {peak / 2**30:.2f} GiB cached (f32 scores of "
-          f"({cm.batch_size}, {net.num_heads}, {math.prod(net.grid)}, "
-          f"{math.prod(net.grid)}) per layer)")
+          f"memory {peak / 2**30:.2f} GiB cached (the fused attention keeps "
+          f"no ({cm.batch_size}, {net.num_heads}, {math.prod(net.grid)}, "
+          f"{math.prod(net.grid)}) tensor)")
     print(f"primus: FLOPs per step {flops:.4e} (3 x forward: linears, "
           f"QK^T, AV, patch embedding, transposed convs, seg head); mfu "
           f"{mfu:.4f} cached, {mfu_fed:.4f} fed (of 989 TFLOP/s dense bf16)")
@@ -2616,7 +2725,7 @@ def _primus(torch, dev, iters, warm):
     t0 = time.perf_counter()
     try:
         predict_entry_point(["-i", join(raw, "imagesTs"), "-o", o, "-d", ds,
-                             "-c", "3d_fullres", "-f", "0", "-tr",
+                             "-c", PRIMUS_CONFIG, "-f", "0", "-tr",
                              PRIMUS_TRAINER])
     finally:
         predictor.NNUNetPredictor.manual_initialization = real_init

@@ -30,8 +30,22 @@ type promotion under bf16:
   float32 from the first block on;
 - the decoder's GELU is the tanh approximation (``jax.nn.gelu``'s
   default); the seg head's output is cast to float32.
-Attention is a plain ``torch.matmul`` + ``softmax``: the JAX module computes
-it with XLA einsums, outside any Pallas kernel.
+Attention in float32 is a plain ``torch.matmul`` + ``softmax``, the JAX
+module's arithmetic (its XLA einsums, outside any Pallas kernel), so the
+float32 network is held to JAX's. In bfloat16 (every trainer's and the
+predictor's compute dtype) it goes through ops/attention.py's fused
+attention (kernels F and G on the card, its plain version on the CPU): the
+temperature times the rotated q_hat, and k_hat, are rounded to bf16 and
+enter the product there, the scores and the softmax stay float32, and no
+(B, H, T, T) tensor is kept for the backward. That is the one place the
+bf16 network rounds otherwise than the JAX module, a decision taken with a
+stated tolerance in place of parity (tests/test_torch_attention.py).
+
+Tracing: ``Primus.timer`` (a ``utils.profiling.PhaseTimer``, None by
+default; set it to trace) brackets each attention call in the phase
+"attention" and counts the calls as ``attn_calls``; the fused attention
+counts kernel F's launches as ``attn_fused`` and brackets its backward in
+"attention_backward".
 
 Drop path (stochastic depth, rate ``drop_path_rate * i / (depth - 1)`` in
 block i) acts only when the forward is given a ``torch.Generator``; the
@@ -52,6 +66,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.attention import fused_attention
+from ..utils.profiling import phase
 
 LN_EPS = 1e-6
 
@@ -122,7 +139,8 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 class EvaAttention(nn.Module):
     """The JAX module with ``scale_attn_inner=True`` (every trainer's and
     the predictor's setting): qk-norm, a learned temperature per head, the
-    rotary embedding."""
+    rotary embedding. In bfloat16 the product runs fused (module
+    docstring)."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -133,17 +151,27 @@ class EvaAttention(nn.Module):
             torch.full((self.num_heads, 1, 1), 10.0))
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, timer=None) -> torch.Tensor:
         B, T, C = x.shape
         H = self.num_heads
         q, k, v = _linear(x, self.qkv).view(B, T, 3, H, C // H).unbind(2)
         q = apply_rope(q / (_l2_norm(q) + 1e-6), cos, sin)
         k = apply_rope(k / (_l2_norm(k) + 1e-6), cos, sin)
-        # float32 scores (q and k are float32 after the rotation)
-        attn = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
-        attn = torch.softmax(attn * self.attn_temperature[None], -1).to(
-            v.dtype)
-        out = torch.matmul(attn, v.transpose(1, 2))
+        if timer is not None:
+            timer.count("attn_calls", 1)
+        if v.dtype == torch.bfloat16:
+            # tau * q_hat and k_hat in bf16, v read in place from qkv
+            q = (q * self.attn_temperature.view(1, 1, H, 1)).to(v.dtype)
+            k = k.to(v.dtype)
+            with phase(timer, "attention"):
+                out = fused_attention(q, k, v, timer)
+            return _linear(out.reshape(B, T, C), self.proj)
+        with phase(timer, "attention"):
+            # float32 scores (q and k are float32 after the rotation)
+            attn = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+            attn = torch.softmax(attn * self.attn_temperature[None], -1).to(
+                v.dtype)
+            out = torch.matmul(attn, v.transpose(1, 2))
         return _linear(out.transpose(1, 2).reshape(B, T, C), self.proj)
 
 
@@ -184,8 +212,9 @@ class PrimusBlock(nn.Module):
         self.drop_path_rate = float(drop_path_rate)
 
     def forward(self, x: torch.Tensor, cos, sin, dtype: torch.dtype,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.attn(self.norm1(x, dtype), cos, sin)
+                generator: Optional[torch.Generator] = None,
+                timer=None) -> torch.Tensor:
+        h = self.attn(self.norm1(x, dtype), cos, sin, timer)
         x = x + self._drop_path(h * self.ls1, generator)
         h = self.mlp(self.norm2(x, dtype))
         return x + self._drop_path(h * self.ls2, generator)
@@ -259,6 +288,8 @@ class Primus(nn.Module):
         self.register_buffer("rope_cos", torch.cos(angles), persistent=False)
         self.register_buffer("rope_sin", torch.sin(angles), persistent=False)
         self.requires_grad_(self.trainable)
+        #: optional utils.profiling.PhaseTimer (module docstring)
+        self.timer = None
 
     def forward(self, x: torch.Tensor, deep_supervision: bool = False, *,
                 generator: Optional[torch.Generator] = None):
@@ -272,7 +303,8 @@ class Primus(nn.Module):
         tokens = h.flatten(2).transpose(1, 2)
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         for blk in self.blocks:
-            tokens = blk(tokens, self.rope_cos, self.rope_sin, dt, generator)
+            tokens = blk(tokens, self.rope_cos, self.rope_sin, dt, generator,
+                         self.timer)
         tokens = self.norm(tokens, dt)
         h = tokens.transpose(1, 2).reshape(B, self.embed_dim, *self.grid)
         for up, norm in zip(self.ups, self.up_norms):

@@ -72,6 +72,12 @@ SIGNATURES = {
     # bias, act, slope, stream
     "fnn_norm_apply": [_p, _p, _i, _ll, _ll, _i, _i, _i, _i, _i, _p, _p, _p,
                        _p, _i, ctypes.c_float, _p],
+    # q, q_sb, q_st, q_sh, k (same), v (same), out, lse, B, T, H, stream
+    "fnn_attention_fwd": [_p, _ll, _ll, _ll] * 3 + [_p, _p, _i, _i, _i, _p],
+    # q, k, v (each with its strides), o, dout, lse, dq, dk, dv, delta, B,
+    # T, H, stream
+    "fnn_attention_bwd": [_p, _ll, _ll, _ll] * 3 + [_p] * 7
+                         + [_i, _i, _i, _p],
 }
 
 HOST_SOURCE = os.path.join(CSRC, "host_ops.cpp")

@@ -982,3 +982,82 @@ def test_engine_binary_links_libtorch_cuda(cuda_device):
     r = subprocess.run([binary, "--help"], capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0 and "--aoti" in r.stderr
+
+
+# ------------------------------------------------ kernels F and G: attention
+def _attention_inputs(shape, dev, seed=0):
+    """Unit-norm q (times a temperature of 10) and k, v read in place from
+    a (B, T, 3, H, hd) qkv output, and dO, all bf16, as Primus gives them."""
+    from torch.nn.functional import normalize
+    B, T, H, hd = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = normalize(torch.randn(shape, device=dev, generator=g), dim=-1) * 10
+    k = normalize(torch.randn(shape, device=dev, generator=g), dim=-1)
+    v = torch.randn(B, T, 3, H, hd, device=dev, generator=g).unbind(2)[2]
+    do = torch.randn(shape, device=dev, generator=g)
+    return [t.bfloat16() for t in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("shape", [(2, 8000, 12, 72), (2, 1037, 12, 72),
+                                   (1, 130, 2, 66)])
+def test_attention_kernels_match_plain(cuda_device, shape):
+    """F and G against their plain version at Primus M's 160^3 shape, a
+    ragged token count and head dim 66 (padded to 72): O, dq, dk and dv
+    within 1.5e-2 of each plain tensor's largest magnitude (the kernel
+    rounds the unnormalised probabilities to bf16, the plain version the
+    normalised ones; measured 2.3e-3 to 6.0e-3 on an H100), lse within 1e-4
+    (measured 1.9e-6); one launch of F, two of G."""
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    q, k, v, do = _attention_inputs(shape, cuda_device)
+    n0, m0 = fa.attention_forward.launches, fa.attention_backward.launches
+    o, lse = fa.attention_forward(q, k, v)
+    grads = fa.attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert fa.attention_forward.launches == n0 + 1
+    assert fa.attention_backward.launches == m0 + 2
+    op, lp = fa.attention_forward_plain(q, k, v, block=500)
+    want = fa.attention_backward_plain(q, k, v, op, lp, do, block=500)
+    assert (lse - lp).abs().max() <= 1e-4
+    for got, ref in zip((o,) + tuple(grads), (op,) + tuple(want)):
+        assert got.shape == ref.shape and not torch.isnan(got).any()
+        err = (got.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err <= 1.5e-2, err
+
+
+def test_attention_kernels_reject_what_they_cannot_take(cuda_device):
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    q, k, v, _ = _attention_inputs((1, 64, 2, 72), cuda_device)
+    with pytest.raises(TypeError):
+        fa.attention_forward(q.float(), k, v)
+    with pytest.raises(ValueError):
+        fa.attention_forward(q[:, :32], k, v)
+    big = torch.zeros(1, 64, 2, 80, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa.attention_forward(big, big, big)
+
+
+def test_primus_step_launches_f_and_g(cuda_device):
+    """A bf16 Primus of Primus M's depth and head dim through one NaN-guarded
+    AdamW train step: F launches once a block (16), G's two passes once a
+    block each (2 x 16), and the timer counts 16 calls, all fused."""
+    from fast_nnunet_tpu_torch.models.primus import Primus, init_primus_
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    from fast_nnunet_tpu_torch.training.optimizers import nnunet_adamw
+    from fast_nnunet_tpu_torch.training.train_step import make_train_step
+    from fast_nnunet_tpu_torch.utils.profiling import PhaseTimer
+    net = init_primus_(Primus(1, 144, (8, 8, 8), 4, 16, 2, (32, 32, 32),
+                              trainable=True), 3).to(cuda_device)
+    net.timer = timer = PhaseTimer()
+    step = make_train_step(net, nnunet_adamw(net.parameters(), 3e-4),
+                           skip_nonfinite=True)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 1, 32, 32, 32, generator=g).to(cuda_device)
+    lab = torch.randint(0, 4, (2, 32, 32, 32), generator=g).to(cuda_device)
+    n0, m0 = fa.attention_forward.launches, fa.attention_backward.launches
+    loss = step(x, (lab,))
+    assert torch.isfinite(loss)
+    assert fa.attention_forward.launches - n0 == 16
+    assert fa.attention_backward.launches - m0 == 2 * 16
+    tot = timer.totals()
+    assert tot["count:attn_calls"] == tot["count:attn_fused"] == 16
+    assert tot["attention"] > 0 and tot["attention_backward"] > 0
