@@ -74,8 +74,8 @@ SIGNATURES = {
                        _p, _i, ctypes.c_float, _p],
     # q, q_sb, q_st, q_sh, k (same), v (same), out, lse, B, T, H, stream
     "fnn_attention_fwd": [_p, _ll, _ll, _ll] * 3 + [_p, _p, _i, _i, _i, _p],
-    # q, k, v (each with its strides), o, dout, lse, dq, dk, dv, delta, B,
-    # T, H, stream
+    # q, k, v (each with its strides), o, dout, lse, dq, dk, dv, ws (the
+    # workspace), B, T, H, stream
     "fnn_attention_bwd": [_p, _ll, _ll, _ll] * 3 + [_p] * 7
                          + [_i, _i, _i, _p],
 }

@@ -26,15 +26,17 @@ with zero columns to 72 on the way in and sliced on the way out: zero
 columns add nothing to S and give zero columns of O, dQ, dK and dV.
 
 Bound on the card: bf16 FLOPs, 4 B H T^2 hd for F and 10 B H T^2 hd for G
-(its two passes do 14: see the source note in csrc/attention.cu).
+(its five products, each computed once: see the source note in
+csrc/attention.cu).
 
 :func:`attention_forward_plain` and :func:`attention_backward_plain` are
 the same arithmetic in plain PyTorch, in query blocks (a block's scores and
 probabilities, never the whole T x T); the wrappers take them for CPU
 tensors only. A CUDA tensor launches the kernels or raises. Launches are
 counted on :func:`attention_forward` (F, one a call) and
-:func:`attention_backward` (G, two a call: the dq pass, then the dkdv
-pass), and, where a ``timer`` is given, as the timer's counter
+:func:`attention_backward` (G, two a call: the prep kernel, then the
+key-major pass, whose f32 sums of dQ arrive in an order that changes from
+run to run), and, where a ``timer`` is given, as the timer's counter
 ``attn_fused``. :class:`FusedAttention` is the autograd Function; its
 backward is the phase ``attention_backward`` of the timer. Autograd runs a
 CUDA backward on its own device thread while the step's thread waits in
@@ -50,6 +52,8 @@ from . import _build
 
 HEAD_DIM = 72       # the kernel's head dim (kD in csrc/attention.cu)
 BLOCK = 256         # query rows a block of the plain version
+BWD_TILE = 64       # G's query rows a tile (kBr in csrc/attention.cu)
+BWD_LAUNCHES = 2    # G's kernels a call (fnn_attention_bwd's launches)
 
 
 def _check(q, k, v):
@@ -156,11 +160,19 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o[..., :hd], lse
 
 
+def backward_workspace_size(B: int, T: int, H: int) -> int:
+    """float32 values of G's workspace (``fnn_attention_bwd``'s ``ws``):
+    per (b, h), lse in log2 units and D for every row of its query tiles,
+    the f32 dQ accumulator of those rows, and one int32 counter a tile."""
+    nq = -(-T // BWD_TILE)
+    return B * H * (nq * BWD_TILE * (2 + HEAD_DIM) + nq)
+
+
 def attention_backward(q, k, v, o, lse, do
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of the contract: kernel G's two passes for CUDA tensors
-    (counted in ``attention_backward.launches``), the plain version for CPU
-    tensors."""
+    """(dq, dk, dv) of the contract: kernel G's two launches for CUDA
+    tensors (counted in ``attention_backward.launches``), the plain version
+    for CPU tensors."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, o, lse, do)
     if q.device.type != "cuda":
@@ -171,16 +183,17 @@ def attention_backward(q, k, v, o, lse, do
     ov, dov = (_kernel_view(t).contiguous() for t in (o, do.to(q.dtype)))
     grads = [torch.empty(B, T, H, HEAD_DIM, dtype=q.dtype, device=q.device)
              for _ in range(3)]
-    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     if B * T * H == 0:
         return tuple(g[..., :hd] for g in grads)
+    ws = torch.empty(backward_workspace_size(B, T, H), dtype=torch.float32,
+                     device=q.device)
     err = _build.library().fnn_attention_bwd(
         *_strides(qv), *_strides(kv), *_strides(vv), ov.data_ptr(),
         dov.data_ptr(), lse.contiguous().data_ptr(),
-        *(g.data_ptr() for g in grads), delta.data_ptr(), B, T, H,
+        *(g.data_ptr() for g in grads), ws.data_ptr(), B, T, H,
         _build.stream_ptr(q))
     _build.check(err, "attention_backward")
-    attention_backward.launches += 2
+    attention_backward.launches += BWD_LAUNCHES
     return tuple(g[..., :hd] for g in grads)
 
 

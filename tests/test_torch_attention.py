@@ -22,6 +22,7 @@ bf16 (the attention's tolerance; in the whole network's logits it hides
 under the other roundings). And no call of
 ``scaled_dot_product_attention``: the port never calls it."""
 import math
+import os
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from benchmark.reference import primus as ref
 from benchmark.reference import train as ref_train
 from fast_nnunet_tpu_torch.models import primus as pprimus
+from fast_nnunet_tpu_torch.ops import _build
 from fast_nnunet_tpu_torch.ops import attention as fa
 from fast_nnunet_tpu_torch.training.optimizers import nnunet_adamw
 from fast_nnunet_tpu_torch.training.schedules import linear_warmup_poly
@@ -134,6 +136,46 @@ def test_plain_fused_attention_matches_the_reference(shape):
     and 66 (S, B, L's), ragged token counts (45, 27)."""
     err = _errors(shape=shape)
     assert max(err.values()) <= ATTN_TOL, err
+
+
+@pytest.mark.parametrize("T", [127, 128, 129, 257])
+def test_plain_backward_at_the_tile_edges(T):
+    """Output, dq, dk, dv and dtau within ATTN_TOL at token counts on either
+    side of kernel G's tiles (64 query rows, 128 key rows a block) and of
+    the plain version's 256-row blocks."""
+    err = _errors(shape=(1, T, 2, 72))
+    assert max(err.values()) <= ATTN_TOL, err
+
+
+def test_backward_launches_are_the_benchmarks():
+    """The wrapper counts G's launches a call as the benchmark's
+    roofline.G.primus expects them (harness/primus_train.G_LAUNCHES; it
+    reads nothing where the trace holds another number), and
+    fnn_attention_bwd launches that many kernels."""
+    import re
+    from benchmark.harness import primus_train
+    assert fa.BWD_LAUNCHES == primus_train.G_LAUNCHES == 2
+    src = open(os.path.join(_build.CSRC, "attention.cu")).read()
+    body = src[src.index('extern "C" int fnn_attention_bwd('):]
+    assert len(re.findall(r"<<<", body)) == fa.BWD_LAUNCHES
+
+
+def test_two_kernels_carry_the_backward_symbol():
+    """Exactly G's two kernels are named with benchmark/kernels/G.py's
+    symbol, in every CUDA source, and F's kernel is not (the trace counts
+    launches by that substring)."""
+    import glob
+    import re
+    from benchmark.kernels import F as kernel_f
+    from benchmark.kernels import G as kernel_g
+    names = []
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                            r"[^)]*\)\s+)?(\w+)\s*\(", open(path).read())
+    assert sorted(n for n in names if kernel_g.SYMBOL in n) == [
+        "attention_bwd_kernel", "attention_bwd_prep_kernel"]
+    assert [n for n in names if kernel_f.SYMBOL in n] == [
+        "attention_fwd_kernel"]
 
 
 @pytest.mark.parametrize("fault", ["no_rope", "no_tau", "p_fp8"])

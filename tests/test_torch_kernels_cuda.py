@@ -999,14 +999,16 @@ def _attention_inputs(shape, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(2, 8000, 12, 72), (2, 1037, 12, 72),
-                                   (1, 130, 2, 66)])
+                                   (1, 130, 2, 66), (1, 45, 2, 72),
+                                   (1, 128, 2, 72), (1, 129, 2, 72)])
 def test_attention_kernels_match_plain(cuda_device, shape):
     """F and G against their plain version at Primus M's 160^3 shape, a
-    ragged token count and head dim 66 (padded to 72): O, dq, dk and dv
-    within 1.5e-2 of each plain tensor's largest magnitude (the kernel
-    rounds the unnormalised probabilities to bf16, the plain version the
-    normalised ones; measured 2.3e-3 to 6.0e-3 on an H100), lse within 1e-4
-    (measured 1.9e-6); one launch of F, two of G."""
+    ragged token count, head dim 66 (padded to 72), and token counts below,
+    at and across one of G's 128-row key blocks: O, dq, dk and dv within
+    1.5e-2 of each plain tensor's largest magnitude (the kernel rounds the
+    unnormalised probabilities to bf16, the plain version the normalised
+    ones; measured 0 to 6.9e-3 on an H100), lse within 1e-4 (measured
+    1.9e-6); one launch of F, two of G."""
     from fast_nnunet_tpu_torch.ops import attention as fa
     q, k, v, do = _attention_inputs(shape, cuda_device)
     n0, m0 = fa.attention_forward.launches, fa.attention_backward.launches
@@ -1024,6 +1026,25 @@ def test_attention_kernels_match_plain(cuda_device, shape):
         assert err <= 1.5e-2, err
 
 
+@pytest.mark.parametrize("shape", [(2, 8000, 12, 72), (2, 1037, 12, 72)])
+def test_attention_backward_twice_on_the_same_inputs(cuda_device, shape):
+    """G run twice: dk and dv bit for bit (each summed in registers in a
+    fixed order); dq's f32 sums arrive by reduce-adds in an order that
+    changes from run to run, and it is rounded to bf16 once, so each
+    element lies within one bf16 rounding step of the other run's (2^-7 of
+    its magnitude, plus 1e-6 of the largest for sums that cancel; measured
+    up to 2.3e-3 of the largest at 160^3 on an H100)."""
+    from fast_nnunet_tpu_torch.ops import attention as fa
+    q, k, v, do = _attention_inputs(shape, cuda_device)
+    o, lse = fa.attention_forward(q, k, v)
+    a = fa.attention_backward(q, k, v, o, lse, do)
+    b = fa.attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    x, y = a[0].float(), b[0].float()
+    assert ((x - y).abs() <= y.abs() * 2 ** -7 + 1e-6 * y.abs().max()).all()
+
+
 def test_attention_kernels_reject_what_they_cannot_take(cuda_device):
     from fast_nnunet_tpu_torch.ops import attention as fa
     q, k, v, _ = _attention_inputs((1, 64, 2, 72), cuda_device)
@@ -1038,7 +1059,7 @@ def test_attention_kernels_reject_what_they_cannot_take(cuda_device):
 
 def test_primus_step_launches_f_and_g(cuda_device):
     """A bf16 Primus of Primus M's depth and head dim through one NaN-guarded
-    AdamW train step: F launches once a block (16), G's two passes once a
+    AdamW train step: F launches once a block (16), G's two kernels once a
     block each (2 x 16), and the timer counts 16 calls, all fused."""
     from fast_nnunet_tpu_torch.models.primus import Primus, init_primus_
     from fast_nnunet_tpu_torch.ops import attention as fa
