@@ -33,6 +33,11 @@ the card. Run from the repository root:
    96x96x160, bf16 compute and sweep accumulator, tile batch 8, 4 GiB
    budget, ``use_fused_accumulate=True``: every accumulate is kernel D. One
    warm run and two timed runs; the first timed run is phased and counted.
+   Then the plain engine's default route, the same engine without kernel D
+   (the reference grid, torch's per-tile accumulate): one timed, phased
+   run at 512^3; and at (200, 128, 192) (uneven x rolls), fp32 with TF32
+   off, its ``predict_segmentation_sweep`` held (>= 0.999) to a tile-by-
+   tile accumulation of the reference grid written out in torch.
 5. Kernel D on a batch captured from that path against its plain version,
    bit for bit in bf16 and f32, timed likewise (library yardstick: one
    ``addcmul_`` per tile).
@@ -187,14 +192,7 @@ the card. Run from the repository root:
    ``host_revert=True`` (s/CT, the packed mask's d2h beside phase 2's, the
    card's and the host's revert of one target-grid mask bit-equal); two
    seeded folds on the device route (s/CT, peak memory, launches: C none,
-   as in JAX) and the tree twice against the tree (>= 0.999). After phase
-   5: the plain engine's streamed and coset sweeps on phase 4's 512^3
-   contract in bf16, one timed run each beside the reference-grid
-   ``predict_segmentation_sweep`` (without kernel D): streamed >= 0.999
-   with it; the coset sweep's tiles are phase 4's quantised grid, and its
-   bf16 agreements with phase 4's mask and the reference grid's are
-   printed; it is held (>= 0.999) with f32 accumulators to the fused
-   sweep batched as its coset rows (the same tiles, forwards and order).
+   as in JAX) and the tree twice against the tree (>= 0.999).
 16. The reference's data (``formats:``), in phase 11's root after phase
    12: phase 11's raw dataset written again as ``.mha`` (zlib;
    Dataset987_FormatsCT, the same voxels and seed; the test label also
@@ -648,16 +646,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- plain full-res path, kernel D
-    cap_d, launches_d, seg_d = plain_main_path(torch, dev, engine_module, K,
-                                               arch)
+    cap_d, launches_d = plain_main_path(torch, dev, engine_module, K, arch)
     rows.append(kernel_d_check(torch, cap_d, launches_d))
     del cap_d
     torch.cuda.empty_cache()
-    mark("plain path and kernel D (phases 4-5)")
-    plain_sweeps(torch, dev, K, arch, seg_d)
-    del seg_d
+    plain_reference_sweep(torch, dev, K, arch)
     torch.cuda.empty_cache()
-    mark("plain streamed and coset sweeps (phase 15)")
+    mark("plain path and kernel D (phases 4-5)")
 
     # ------------------------------------------- training and distillation
     training_paths(torch, dev, next(r for r in rows
@@ -1212,7 +1207,96 @@ def plain_main_path(torch, dev, engine_module, K, arch, d_call=3, size=512):
           f"sample; agreement with the warm-up run's mask {repeat:.6f}")
     check(repeat >= 0.999, f"plain warm-up and counted runs agree only "
           f"{repeat}")
-    return cap["d"], launches, seg
+    return cap["d"], launches
+
+
+def plain_reference_sweep(torch, dev, K, arch, size=512,
+                          patch=(96, 96, 160), small=(200, 128, 192)):
+    """Phase 4's contract without kernel D, the plain engine's default
+    route: ``predict_segmentation`` on the reference grid with torch's
+    per-tile accumulate, one timed, phased run at size^3 in bf16. Then, at
+    ``small`` in fp32 with TF32 off, ``predict_segmentation_sweep`` against
+    every tile of ``compute_steps_for_sliding_window``'s grid run alone and
+    accumulated with the gaussian into a whole-volume buffer (agreement
+    >= 0.999): what the rolling sweep's accumulate, rolls or finalize get
+    wrong shows there."""
+    import numpy as np
+    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
+                                                        SlidingWindowEngine)
+    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
+    from fast_nnunet_tpu_torch.ops.sliding_window import (
+        compute_gaussian, compute_steps_for_sliding_window)
+
+    tree = random_plain_params(arch, 1, K, seed=0)
+
+    def engine(dtype):
+        net = get_network_from_plans("PlainConvUNet", arch, (), 1, K,
+                                     compute_dtype=dtype).to(dev)
+        return SlidingWindowEngine(
+            net, patch, K, tile_step_size=0.5, use_gaussian=True,
+            compute_dtype=dtype, sweep_acc_dtype=dtype, shape_bucket=32,
+            tile_batch=8, max_accumulator_bytes=4 * 1024 ** 3, device=dev)
+
+    eng = engine(torch.bfloat16)
+    vol = (np.random.RandomState(0).rand(1, size, size, size).astype(
+        np.float32) - 0.5) * 2
+    check(not eng._sweep_grid(vol.shape[1:])[4],
+          "the default plain route took kernel D's grid")
+    eng.timer = PhaseTimer()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seg = eng.predict_segmentation(tree, vol)
+    wall = time.perf_counter() - t0
+    phases = device_ms(eng.timer.totals())
+    print(f"plain: reference-grid sweep (no kernel D) {wall:.4f} s per "
+          f"volume (one run, includes its first call's allocations); peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase ms "
+          + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    labels = sorted(int(v) for v in set(seg[::4, ::4, ::4].ravel().tolist()))
+    check(seg.shape == (size,) * 3 and str(seg.dtype) == "uint8"
+          and max(labels) < K and len(labels) > 1,
+          f"reference-grid mask {seg.shape} {seg.dtype}, labels {labels}")
+    del eng, vol, seg
+    torch.cuda.empty_cache()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        eng = engine(torch.float32)
+        vol = (np.random.RandomState(1).rand(1, *small).astype(np.float32)
+               - 0.5) * 2
+        seg = eng.predict_segmentation_sweep(tree, vol)
+        starts = compute_steps_for_sliding_window(small, patch, 0.5)
+        rolls = sorted(set(np.diff(starts[0]).tolist()))
+        g = torch.as_tensor(compute_gaussian(patch), dtype=torch.float32,
+                            device=dev)
+        acc = torch.zeros((K, *small), dtype=torch.float32, device=dev)
+        w = torch.zeros(small, dtype=torch.float32, device=dev)
+        x = torch.as_tensor(vol, device=dev)
+        net = eng.load_params(tree)[0]
+        with torch.no_grad():
+            for x0 in starts[0]:
+                for y0 in starts[1]:
+                    for z0 in starts[2]:
+                        sl = (slice(x0, x0 + patch[0]),
+                              slice(y0, y0 + patch[1]),
+                              slice(z0, z0 + patch[2]))
+                        out = net(x[(slice(None),) + sl][None]).float()[0]
+                        acc[(slice(None),) + sl] += out * g
+                        w[sl] += g
+        ref = (acc / w).argmax(0).to(torch.uint8).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    agree = float((seg == ref).mean())
+    n_lab = len(set(ref[::4, ::4, ::4].ravel().tolist()))
+    print(f"plain: fp32 reference-grid sweep at {small} (x rolls {rolls}) "
+          f"vs a tile-by-tile accumulation: agreement {agree:.6f}, {n_lab} "
+          f"labels on a 1/64 sample")
+    check(len(rolls) == 2, f"x rolls {rolls} are not uneven")
+    check(agree >= 0.999, f"reference-grid sweep agrees only {agree} with "
+          f"the tile-by-tile accumulation")
+    check(n_lab > 1, "the reference-grid check produced a single label")
 
 
 def host_route_path(torch, pipe, tree, tree2, ct, spacing, seg_dev,
@@ -1368,74 +1452,6 @@ def host_route_path(torch, pipe, tree, tree2, ct, spacing, seg_dev,
           f"{agree:.6f}")
     check(agree >= 0.999, f"[tree, tree] agrees with tree only {agree}")
     engine.load_params(tree)
-
-
-def plain_sweeps(torch, dev, K, arch, seg_quantised, size=512,
-                 patch=(96, 96, 160)):
-    """Phase 15's plain-engine sweeps on phase 4's contract (the student as
-    a PlainConvUNet, 512^3, bf16, tile batch 8): the reference-grid rolling
-    sweep without kernel D, the streamed sweep and the coset sweep through
-    ``predict_segmentation``, one timed run each; the streamed sweep held
-    to the reference-grid sweep. The coset sweep's tiles are the uniform
-    half-patch grid — phase 4's quantised grid (``seg_quantised``, its
-    mask), not the reference grid — and it rounds its bf16 contributions
-    otherwise than kernel D, so both bf16 agreements are printed; it is
-    held, with f32 accumulators on both sides, to the fused sweep batched
-    as the coset rows are (tile batch = tiles per coset row): the same
-    tiles through the same forwards, added in the same order."""
-    import numpy as np
-    from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
-                                                        SlidingWindowEngine)
-    from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
-    from fast_nnunet_tpu_torch.models.s2d import random_plain_params
-
-    net = get_network_from_plans("PlainConvUNet", arch, (), 1, K,
-                                 compute_dtype=torch.bfloat16).to(dev)
-    tree = random_plain_params(arch, 1, K, seed=0)
-    vol = (np.random.RandomState(0).rand(1, size, size, size).astype(
-        np.float32) - 0.5) * 2
-    n_z = int(np.ceil((size - patch[2]) / (patch[2] // 2))) + 1
-    row = (n_z + 1) // 2  # tiles of one coset row at this size
-
-    def run(name, acc_dtype=torch.bfloat16, tile_batch=8, **kw):
-        engine = SlidingWindowEngine(
-            net, patch, K, tile_step_size=0.5, use_gaussian=True,
-            compute_dtype=torch.bfloat16, sweep_acc_dtype=acc_dtype,
-            shape_bucket=32, tile_batch=tile_batch,
-            max_accumulator_bytes=4 * 1024 ** 3, device=dev, **kw)
-        engine.timer = PhaseTimer()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        mask = engine.predict_segmentation(tree, vol)
-        wall = time.perf_counter() - t0
-        phases = device_ms(engine.timer.totals())
-        print(f"host: plain {name}: {wall:.4f} s per volume (one run, "
-              f"includes its first call's allocations); peak "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; phase "
-              f"ms " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-        del engine
-        torch.cuda.empty_cache()
-        return mask
-
-    ref = run("reference-grid sweep")
-    stream = run("streamed sweep", use_streamed_sweep=True)
-    coset = run("coset sweep", use_coset_sweep=True)
-    a_stream = float((stream == ref).mean())
-    print(f"host: plain streamed vs reference-grid sweep {a_stream:.6f}; "
-          f"coset (bf16) vs phase 4's quantised-grid sweep "
-          f"{float((coset == seg_quantised).mean()):.6f}, vs the reference "
-          f"grid {float((coset == ref).mean()):.6f}")
-    check(a_stream >= 0.999, f"streamed sweep agrees only {a_stream}")
-    del ref, stream, coset
-    c32 = run("coset sweep, f32 accumulator", torch.float32,
-              use_coset_sweep=True)
-    d32 = run(f"fused sweep (kernel D), f32 accumulator, tile batch {row}",
-              torch.float32, tile_batch=row, use_fused_accumulate=True)
-    n_diff = int((c32 != d32).sum())
-    a_coset = 1.0 - n_diff / c32.size
-    print(f"host: plain coset vs fused sweep on the same batches (f32 "
-          f"accumulators): {n_diff} voxels differ, agreement {a_coset:.6f}")
-    check(a_coset >= 0.999, f"coset sweep agrees only {a_coset}")
 
 
 def kernel_d_check(torch, cap, launches):

@@ -21,15 +21,6 @@ numerics. Ported routes:
   evenly spread grid where the patch is too small for 16-aligned strides;
   otherwise it is the reference grid and the plain per-tile
   read-modify-write.
-- ``predict_segmentation_sweep_streamed`` (``use_streamed_sweep``): the
-  same rolling sweep on the reference grid, the volume uploaded strip by
-  strip on a side stream, the next chunk's strip in flight while the
-  current chunk computes, each chunk's finished rows copied out as they
-  are done.
-- ``predict_segmentation_coset`` (``use_coset_sweep``; step 0.5, even patch
-  dims): the uniform half-patch grid split into 4 cosets per chunk; the
-  tiles of a coset row are disjoint, so each row lands with one dense add
-  into a (rows, K+1, Y, Z) accumulator kept as two half-depth buffers.
 - ``run_s2d_sweep``: the s2d rolling sweep of the turbo path — forward to
   the pre-head s2d features, kernel C (ops/s2d_accumulate.py) per tile
   batch, kernel B (ops/finalize.py) per chunk with a cyclic row origin.
@@ -228,10 +219,7 @@ class SlidingWindowEngine:
     way, as there). pad_to_tile_batch: every forward gets exactly
     ``tile_batch`` tiles, short batches padded with zero-valid repeats of
     the last tile (an exported artifact has a fixed batch dimension).
-    use_coset_sweep / use_streamed_sweep: the JAX engine's options of the
-    same names — which sweep ``predict_segmentation`` takes above the
-    accumulator budget (see the module docstring; the streamed sweep not
-    with ``use_fused_accumulate``, as in JAX). aot_cache: a private
+    aot_cache: a private
     directory of AOTInductor packages for the s2d sweep's forward (None:
     ``FNN_AOT_CACHE``; unset: eager); see the module docstring."""
 
@@ -244,9 +232,7 @@ class SlidingWindowEngine:
                  shape_bucket: int = 32, tile_batch: int = 8,
                  max_accumulator_bytes: int = 4 * 1024 ** 3,
                  use_fused_accumulate: bool = False,
-                 pad_to_tile_batch: bool = False,
-                 use_coset_sweep: bool = False,
-                 use_streamed_sweep: bool = False, device=None,
+                 pad_to_tile_batch: bool = False, device=None,
                  aot_cache: Optional[str] = None):
         self.network = network
         self.is_s2d = isinstance(network, s2d_model.S2DPlainConvUNet)
@@ -268,8 +254,6 @@ class SlidingWindowEngine:
         self.max_accumulator_bytes = int(max_accumulator_bytes)
         self.use_fused_accumulate = bool(use_fused_accumulate)
         self.pad_to_tile_batch = bool(pad_to_tile_batch)
-        self.use_coset_sweep = bool(use_coset_sweep)
-        self.use_streamed_sweep = bool(use_streamed_sweep)
         if self.use_fused_accumulate and self.tile_batch > MAX_TILES:
             raise ValueError(f"tile_batch {self.tile_batch}: kernel D takes "
                              f"up to {MAX_TILES} tiles per launch")
@@ -894,212 +878,6 @@ class SlidingWindowEngine:
         seg = self.run_sweep(vol, plan, forward)
         return seg[tuple(slice(0, s) for s in spatial)].cpu().numpy()
 
-    def predict_segmentation_sweep_streamed(self, params_list,
-                                            volume: np.ndarray) -> np.ndarray:
-        """The rolling sweep on the reference grid with the volume uploaded
-        strip by strip (the JAX method's contract): chunk k's slab is
-        vol[starts_x[k] : starts_x[k] + p0), strip k carries the rows new to
-        it and is uploaded two chunks ahead on a side stream while earlier
-        chunks compute; each chunk's finished rows are copied out as it
-        ends. Grid-exact like :meth:`predict_segmentation_sweep` without the
-        fused accumulate, and equal to it. One x start falls back to it."""
-        self._check_dims(volume)
-        nets = self.load_params(params_list)
-        forward = self._tile_step_fn(nets)
-        spatial = tuple(int(s) for s in volume.shape[1:])
-        p0 = self.patch_size[0]
-        x_tight = max(spatial[0], p0)
-        tight_rest = tuple(max(s, p)
-                           for s, p in zip(spatial[1:], self.patch_size[1:]))
-        steps = compute_steps_for_sliding_window(
-            (x_tight, *tight_rest), self.patch_size, self.tile_step_size)
-        starts_x = [int(s) for s in steps[0]]
-        n_starts = len(starts_x)
-        if n_starts == 1:
-            return self.predict_segmentation_sweep(params_list, volume)
-        rolls = [starts_x[k + 1] - starts_x[k] for k in range(n_starts - 1)]
-        coords_yz = tile_coords_from_steps(steps[1:])
-        coords_b, valid_b = self._batched_coords(np.concatenate(
-            [np.zeros((len(coords_yz), 1), np.int32), coords_yz], axis=1))
-        plane = tuple(_round_up(t, self.shape_bucket) for t in tight_rest)
-        K, C = self.num_classes, volume.shape[0]
-        acc_dtype = self.sweep_acc_dtype
-        src = np.asarray(volume, np.float32)
-        bounds = [(0, p0)] + [(starts_x[k - 1] + p0, starts_x[k] + p0)
-                              for k in range(1, n_starts)]
-
-        def put(k):
-            b0, b1 = bounds[k]
-            rows = max(0, min(b1, spatial[0]) - b0)
-
-            def fill(host):
-                host.zero_()
-                if rows:
-                    host[:, :rows, :spatial[1], :spatial[2]] = \
-                        torch.from_numpy(src[:, b0:b0 + rows])
-            return up.put((C, b1 - b0, *plane), self.compute_dtype, fill)
-
-        up = StripUploader(self.device, self.phase)
-        fetch = RowFetcher(self.device)
-        pending = [put(0), put(1)]
-        acc = torch.zeros((p0, *plane, K + 1), dtype=acc_dtype,
-                          device=self.device)
-        spare = torch.empty_like(acc)
-        slab = None
-        with torch.no_grad():
-            for k in range(n_starts):
-                if k + 2 < n_starts:
-                    pending.append(put(k + 2))
-                strip = up.take(pending[k])
-                pending[k] = None
-                slab = strip if k == 0 else torch.cat(
-                    [slab[:, rolls[k - 1]:], strip], 1)
-                for bi in range(len(coords_b)):
-                    with self.phase("forward"):
-                        logits = forward(self._gather(slab, coords_b[bi]))
-                    with self.phase("accumulate"):
-                        self._accumulate_batch(acc, logits, coords_b[bi],
-                                               valid_b[bi], acc_dtype)
-                n = rolls[k] if k < n_starts - 1 else p0
-                with self.phase("finalize"):
-                    # argmax(a / w) == argmax(a): w > 0 is shared by classes
-                    rows = acc[:n, ..., :K].argmax(-1).to(torch.uint8)
-                    if k < n_starts - 1:
-                        spare[:p0 - n].copy_(acc[n:])
-                        spare[p0 - n:].zero_()
-                        acc, spare = spare, acc
-                with self.phase("d2h"):
-                    self.count("d2h_pinned_bytes", rows.nbytes)
-                    fetch.put(rows)
-        seg = np.concatenate(fetch.results(), 0)
-        return seg[tuple(slice(0, s) for s in spatial)]
-
-    def predict_segmentation_coset(self, params_list,
-                                   volume: np.ndarray) -> np.ndarray:
-        """Coset-decomposed rolling sweep (the JAX method's contract; step
-        0.5 and even patch dims). The grid is uniform at half a patch on
-        every axis; per chunk its tiles split into 4 cosets (even / odd
-        start index in y and z) whose tiles are disjoint and lie side by
-        side, so a coset row of tiles at one y offset lands in the (rows,
-        K+1, Y, Z) accumulator with one dense add. Rows are forwarded in
-        groups of at most 4 tiles, padded with zero tiles masked out. The
-        accumulator is two half-depth buffers; rolling by a chunk swaps
-        them. Fold ensembles average the logits as everywhere."""
-        self._check_dims(volume)
-        if self.tile_step_size != 0.5 or any(p % 2 for p in self.patch_size):
-            raise ValueError("coset sweep requires step 0.5 and even patch "
-                             f"dims, got {self.tile_step_size}, "
-                             f"{self.patch_size}")
-        forward = self._tile_step_fn(self.load_params(params_list))
-        spatial = tuple(int(s) for s in volume.shape[1:])
-        p0, py, pz = self.patch_size
-        stride, sy, sz = p0 // 2, py // 2, pz // 2
-        n_chunks = int(np.ceil((max(spatial[0], p0) - p0) / stride)) + 1
-        x_padded = (n_chunks - 1) * stride + p0
-        tail_rows = p0 - stride if n_chunks > 1 else p0
-        if n_chunks == 1:
-            stride = 0
-
-        def grid_1d(extent, p, s):
-            tight = max(extent, p)
-            n = int(np.ceil((tight - p) / s)) + 1 if tight > p else 1
-            ce, co = (n + 1) // 2, n // 2
-            # both cosets are padded to ce tiles, so the odd one's last
-            # column reaches s + ce * p
-            return n, (s + ce * p) if co else ce * p
-
-        ny, y_needed = grid_1d(spatial[1], py, sy)
-        nz, z_needed = grid_1d(spatial[2], pz, sz)
-        plane = (max(y_needed, _round_up(max(spatial[1], py),
-                                         self.shape_bucket)),
-                 max(z_needed, _round_up(max(spatial[2], pz),
-                                         self.shape_bucket)))
-        C, K = volume.shape[0], self.num_classes
-        acc_dtype = self.sweep_acc_dtype
-        vol = torch.zeros((C, x_padded, *plane), dtype=self.compute_dtype,
-                          device=self.device)
-        vol[(slice(None),) + tuple(slice(0, s) for s in spatial)] = \
-            torch.as_tensor(np.asarray(volume, np.float32)).to(
-                self.device, self.compute_dtype)
-
-        # coset rows in the JAX order: (even y, even z), (even y, odd z),
-        # (odd y, even z), (odd y, odd z); each of cz_m columns, those past
-        # the coset's count masked
-        ny_e, ny_o, nz_e, nz_o = (ny + 1) // 2, ny // 2, (nz + 1) // 2, nz // 2
-        cz_m = max(nz_e, nz_o)
-        rows_meta = []
-        for oy0, cy in ((0, ny_e), (sy, ny_o)):
-            for oz, cz in ((0, nz_e), (sz, nz_o)):
-                if cy > 0 and cz > 0:
-                    cols = np.zeros(cz_m, bool)
-                    cols[:cz] = True
-                    rows_meta += [(oy0 + i * py, oz, cols) for i in range(cy)]
-        B = min(self.tile_batch, 4, cz_m)
-        G = -(-cz_m // B)
-        g = self.gaussian_tensor(acc_dtype)
-        g_w = g.expand(B, 1, p0, py, pz)
-
-        def run_cosets(accs, x0):
-            for oy, oz, cols in rows_meta:
-                region = vol[:, x0:x0 + p0, oy:oy + py, oz:oz + cz_m * pz]
-                tiles = region.reshape(C, p0, py, cz_m, pz).permute(
-                    3, 0, 1, 2, 4)                       # (cz_m, C, *patch)
-                parts = []
-                for gi in range(G):
-                    vm = cols[gi * B:(gi + 1) * B]
-                    n = len(vm)
-                    if not vm.any():  # padding only: a zero contribution
-                        parts.append(torch.zeros(
-                            (n, K + 1, p0, py, pz), dtype=acc_dtype,
-                            device=self.device))
-                        continue
-                    tb = torch.zeros((B, C, p0, py, pz),
-                                     dtype=self.compute_dtype,
-                                     device=self.device)
-                    tb[:n] = tiles[gi * B:gi * B + n]
-                    with self.phase("forward"):
-                        logits = forward(tb)
-                    with self.phase("accumulate"):
-                        c = torch.cat([logits * g, g_w], 1).to(acc_dtype)
-                        mask = torch.as_tensor(vm, device=self.device).to(
-                            acc_dtype)
-                        parts.append(c[:n] * mask[:, None, None, None, None])
-                with self.phase("accumulate"):
-                    block = torch.cat(parts).permute(2, 1, 3, 0, 4).reshape(
-                        p0, K + 1, py, cz_m * pz)
-                    sl = (slice(None), slice(None), slice(oy, oy + py),
-                          slice(oz, oz + cz_m * pz))
-                    if len(accs) == 1:
-                        accs[0][sl] += block
-                    else:
-                        accs[0][sl] += block[:stride]
-                        accs[1][sl] += block[stride:]
-
-        seg = torch.zeros((x_padded, *plane), dtype=torch.uint8,
-                          device=self.device)
-        with torch.no_grad():
-            if stride == 0:
-                acc = torch.zeros((p0, K + 1, *plane), dtype=acc_dtype,
-                                  device=self.device)
-                run_cosets((acc,), 0)
-                seg[:tail_rows] = acc[:tail_rows, :K].argmax(1).to(torch.uint8)
-            else:
-                lo = torch.zeros((stride, K + 1, *plane), dtype=acc_dtype,
-                                 device=self.device)
-                hi = torch.zeros_like(lo)
-                for k in range(n_chunks):
-                    x0 = k * stride
-                    run_cosets((lo, hi), x0)
-                    with self.phase("finalize"):
-                        seg[x0:x0 + stride] = lo[:, :K].argmax(1).to(
-                            torch.uint8)
-                        lo, hi = hi, lo
-                        hi.zero_()
-                x0 = n_chunks * stride
-                seg[x0:x0 + tail_rows] = lo[:tail_rows, :K].argmax(1).to(
-                    torch.uint8)
-        return seg[tuple(slice(0, s) for s in spatial)].cpu().numpy()
-
     # -------------------------------------------------------------- s2d sweep
     def run_s2d_sweep(self, vol: torch.Tensor, spatial: Sequence[int],
                       valid_chunks: Optional[np.ndarray] = None
@@ -1142,12 +920,10 @@ class SlidingWindowEngine:
     # ------------------------------------------------------------- dispatch
     def predict_segmentation(self, params_list,
                              volume: np.ndarray) -> np.ndarray:
-        """Argmax segmentation: above the accumulator budget one of the
-        sweeps (s2d for an s2d network without mirroring, else the coset or
-        the streamed sweep where their options select them, else the plain
-        rolling sweep); otherwise the grid-exact logits path. A 2D engine
-        takes the argmax of its 2D-over-slices logits, as the JAX engine
-        does."""
+        """Argmax segmentation: above the accumulator budget a sweep (s2d
+        for an s2d network without mirroring, else the plain rolling
+        sweep); otherwise the grid-exact logits path. A 2D engine takes the
+        argmax of its 2D-over-slices logits, as the JAX engine does."""
         if self.dim == 2:
             return self._predict_logits_2d_over_slices(
                 params_list, volume).argmax(0)
@@ -1156,12 +932,6 @@ class SlidingWindowEngine:
         if self._acc_bytes(spatial) > self.max_accumulator_bytes:
             if self.is_s2d and not self.mirror_axes:
                 return self.predict_segmentation_sweep_s2d(params_list, volume)
-            if self.use_coset_sweep and self.tile_step_size == 0.5 and \
-                    all(p % 2 == 0 for p in self.patch_size):
-                return self.predict_segmentation_coset(params_list, volume)
-            if self.use_streamed_sweep and not self.use_fused_accumulate:
-                return self.predict_segmentation_sweep_streamed(params_list,
-                                                                volume)
             return self.predict_segmentation_sweep(params_list, volume)
         return self.predict_logits(params_list, volume).argmax(0)
 

@@ -26,19 +26,18 @@ default serving route), on the host library csrc/host_ops.cpp
 
 - streamed (the default; ``FNN_TURBO_STREAM=0`` turns it off): the sweep
   runs over a rolling device slab of p0 rows. Each x-strip of the target
-  grid is clipped, z-scored and resampled in C++ right before its upload
-  (``FNN_LAZY_PRE=0``: from a whole grid preprocessed first), cropped
-  in-plane to the non-air bounding box (``FNN_HOST_CROP=0`` keeps the
-  whole plane), written into a ring of pinned buffers and copied on a side
-  stream two chunks ahead, while the card computes earlier chunks; the
-  slab reinserts it into the bf16-exact fill. Each chunk's finished rows
-  are packed 6 bits per voxel and copied out as the chunk ends; the host
-  unpacks them and reverts to the original grid. Air flags come from the
-  strips the host already holds (no fetch per chunk).
+  grid is clipped, z-scored and resampled in C++ right before its upload,
+  cropped in-plane to the non-air bounding box, written into a ring of
+  pinned buffers and copied on a side stream two chunks ahead, while the
+  card computes earlier chunks; the slab reinserts it into the bf16-exact
+  fill. Each chunk's finished rows are packed 6 bits per voxel and copied
+  out as the chunk ends; the host unpacks them and reverts to the original
+  grid. Air flags come from the strips the host already holds (no fetch
+  per chunk).
 - fused, where the geometry does not stream (one x start, an odd roll) or
-  the stream is off: the whole preprocessed grid (its non-fill bounding
-  slab with ``FNN_HOST_CROP=1``) is uploaded, reinserted into fill on the
-  device, swept like the device route and reverted on the host.
+  the stream is off: the non-fill bounding slab of the whole preprocessed
+  grid is uploaded, reinserted into fill on the device, swept like the
+  device route and reverted on the host.
 
 Both routes run the same per-chunk body (engine.S2DChunks): the same
 tiles in the same batches, so their masks are bit-equal.
@@ -66,6 +65,10 @@ from ..device import resolve_device
 from ..imageio.nifti import NiftiIOWithReorient
 from ..utils import hostops
 from .engine import RowFetcher, S2DChunks, StripUploader
+
+
+#: in-plane extents of the host route's crop round up to this
+CROP_BUCKET = 32
 
 
 def _parse_tuple(s: str) -> Tuple[float, ...]:
@@ -227,7 +230,7 @@ def _source_range_to_target(n_in: int, n_out: int, slo: int, shi: int):
     return int(nz[0]), int(nz[-1]) + 1
 
 
-def _crop_to_fill_bbox(arr: np.ndarray, fill_bits, bucket: int = 32):
+def _crop_to_fill_bbox(arr: np.ndarray, fill_bits, bucket: int):
     """arr: (C, d, h, w) bf16 bits. Returns (crop_box, slab): slab is the
     contiguous sub-volume outside of which EVERY channel equals its fill
     bit pattern (padding it with the fill reconstructs arr exactly), its
@@ -417,8 +420,6 @@ class TurboPipeline:
                 raise ValueError("host_preprocess supports CT channels only")
             hostops.library()
         self.host_preprocess = bool(host_preprocess)
-        #: in-plane slab extents of the host crop round up to this
-        self.crop_bucket = int(os.environ.get("FNN_HOST_CROP_BUCKET", "32"))
         #: the host revert fetches 6-bit labels when they fit
         self.pack_mask = config.num_classes <= 64
         ch0 = config.channels[0]
@@ -572,27 +573,19 @@ class TurboPipeline:
         in_shape, new_shape = self._geometry(volume, spacing)
         inv = cfg.transpose_backward
         new_shape_img = tuple(new_shape[inv[p]] for p in range(3))
-        stream_on = os.environ.get("FNN_TURBO_STREAM", "1") == "1"
-        lazy_on = os.environ.get("FNN_LAZY_PRE", "1") == "1"
-        if stream_on and lazy_on:
-            seg = self._predict_streamed(new_shape, new_shape_img, raw=volume)
+        if os.environ.get("FNN_TURBO_STREAM", "1") == "1":
+            seg = self._predict_streamed(volume, new_shape, new_shape_img)
             if seg is not None:
                 return self._finish_host(seg, in_shape)
         with self.engine.phase("host_preprocess", events=False):
             grid = hostops.preprocess_ct_i16(volume, new_shape_img,
                                              *self._ct_scalars())
-        if stream_on and not lazy_on:
-            seg = self._predict_streamed(new_shape, new_shape_img, grid=grid)
-            if seg is not None:
-                return self._finish_host(seg, in_shape)
         self.route = "host"
-        crop_box = None
-        if os.environ.get("FNN_HOST_CROP", "1") == "1":
-            # what the CT clip floor made exactly the fill (air) need not
-            # cross the link: upload the non-fill slab, reinsert on device
-            crop_box, grid = _crop_to_fill_bbox(
-                grid, [_fill_bf16_bits(c) for c in cfg.channels],
-                bucket=self.crop_bucket)
+        # what the CT clip floor made exactly the fill (air) need not cross
+        # the link: upload the non-fill slab, reinsert on device
+        crop_box, grid = _crop_to_fill_bbox(
+            grid, [_fill_bf16_bits(c) for c in cfg.channels],
+            bucket=CROP_BUCKET)
         seg = self._sweep_host_grid(grid, crop_box, new_shape)
         return self._revert_on_host(
             seg[tuple(slice(0, n) for n in new_shape)], in_shape)
@@ -654,12 +647,11 @@ class TurboPipeline:
                 seg = hostops.nearest_revert_u8(seg, in_shape)
         return np.transpose(seg, self.config.transpose_backward)
 
-    def _predict_streamed(self, new_shape, img_shape, raw=None, grid=None
+    def _predict_streamed(self, raw: np.ndarray, new_shape, img_shape
                           ) -> Optional[np.ndarray]:
         """The streamed host route over a rolling device slab (module
         docstring). raw: the (C, D, H, W) int16 volume, each strip
-        preprocessed from it right before its upload; or grid: the whole
-        preprocessed image-order grid (bf16 bits). Returns the engine-order
+        preprocessed from it right before its upload. Returns the engine-order
         target-grid mask, or None where the geometry does not stream (one x
         start, an odd roll, mirroring, an odd patch, a strip box the host
         library rejects): the caller then takes the fused host route."""
@@ -680,23 +672,17 @@ class TurboPipeline:
         fill_bits = [_fill_bf16_bits(c) for c in cfg.channels]
 
         # the in-plane crop box, applied to every strip (x is never cropped)
-        if os.environ.get("FNN_HOST_CROP", "1") == "1":
-            if raw is not None:
-                slo, shi = hostops.nonair_bbox_i16(raw, lbs)
-                if shi[0] <= slo[0]:  # all air, as _nonfill_bbox
-                    lo = [0] * 3
-                    hi = [min(self.crop_bucket, n) for n in img_shape]
-                else:
-                    pairs = [_source_range_to_target(
-                        raw.shape[1 + ax], img_shape[ax], slo[ax], shi[ax])
-                        for ax in range(3)]
-                    lo, hi = [p[0] for p in pairs], [p[1] for p in pairs]
-            else:
-                lo, hi = _nonfill_bbox(grid, fill_bits, self.crop_bucket)
+        slo, shi = hostops.nonair_bbox_i16(raw, lbs)
+        if shi[0] <= slo[0]:  # all air, as _nonfill_bbox
+            lo = [0] * 3
+            hi = [min(CROP_BUCKET, n) for n in img_shape]
         else:
-            lo, hi = [0] * 3, list(img_shape)
+            pairs = [_source_range_to_target(
+                raw.shape[1 + ax], img_shape[ax], slo[ax], shi[ax])
+                for ax in range(3)]
+            lo, hi = [p[0] for p in pairs], [p[1] for p in pairs]
         box = [(0, img_shape[ax]) if ax == t0 else
-               _bucket_extent(lo[ax], hi[ax], img_shape[ax], self.crop_bucket)
+               _bucket_extent(lo[ax], hi[ax], img_shape[ax], CROP_BUCKET)
                for ax in range(3)]
         nx, ny, nz = new_shape
         bounds = [(0, p0)] + [(starts_x[k - 1] + p0, starts_x[k] + p0)
@@ -755,14 +741,9 @@ class TurboPipeline:
 
             def fill(host):
                 out = host.numpy().view(np.uint16)
-                if raw is not None:
-                    with eng.phase("host_preprocess", events=False):
-                        hostops.preprocess_ct_i16_box(
-                            raw, img_shape, b6, lbs, ubs, means, stds,
-                            out=out)
-                else:
-                    out[...] = grid[(slice(None),) + tuple(
-                        slice(b6[2 * ax], b6[2 * ax + 1]) for ax in range(3))]
+                with eng.phase("host_preprocess", events=False):
+                    hostops.preprocess_ct_i16_box(
+                        raw, img_shape, b6, lbs, ubs, means, stds, out=out)
                 if air:
                     with eng.phase("host_air", events=False):
                         rowmax[a:a + shape[t0]] = np.maximum(

@@ -2,8 +2,11 @@
 SlidingWindowEngine on CPU, fp32, same seeded weights: both sweep grids
 (the fused one with kernel D's plain version on the port's side and the
 Pallas kernel in interpret mode on the JAX side) with mask agreement
->= 0.999, ``predict_logits`` whole, chunked and host-memmapped within atol
-1e-4, and mirror TTA with two folds likewise."""
+>= 0.999, at several geometries and for fold ensembles; the reference-grid
+sweep against a naive accumulation; ``predict_logits`` whole, chunked and
+host-memmapped within atol 1e-4, and mirror TTA with two folds likewise;
+and the route ``predict_segmentation`` takes above the accumulator
+budget."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +15,12 @@ import torch
 
 from fast_nnunet_tpu.inference.engine import SlidingWindowEngine as JaxEngine
 from fast_nnunet_tpu.models.factory import get_network_from_plans as jax_net
+from fast_nnunet_tpu.ops.sliding_window import (
+    compute_gaussian, compute_steps_for_sliding_window)
+from fast_nnunet_tpu_torch.inference import engine as engine_module
 from fast_nnunet_tpu_torch.inference.engine import SlidingWindowEngine
 from fast_nnunet_tpu_torch.models.factory import get_network_from_plans
+from fast_nnunet_tpu_torch.models.s2d import make_s2d_engine_net
 from fast_nnunet_tpu_torch.ops import scatter_accumulate
 
 from .torch_port_common import (ARCH, K, PATCH,  # noqa: F401  (fixture)
@@ -48,10 +55,17 @@ def _vol(shape, seed):
     return np.random.RandomState(seed).randn(1, *shape).astype(np.float32)
 
 
-def test_sweep_plain_grid_matches_jax():
+# one x start (7), even and uneven rolls, extents on and off the half-patch
+# grid, and plane extents below and above the shape bucket
+SWEEP_SHAPES = [(21, 18, 35), (26, 13, 18), (7, 13, 18), (16, 16, 32),
+                (21, 13, 18)]
+
+
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_sweep_plain_grid_matches_jax(shape):
     jeng, teng = _engines()
     tree = plain_params(0)
-    v = _vol((21, 18, 35), 1)
+    v = _vol(shape, 1)
     ref = jeng.predict_segmentation_sweep(_jtree(tree), v)
     got = teng.predict_segmentation_sweep(tree, v)
     assert got.shape == ref.shape == v.shape[1:] and got.dtype == np.uint8
@@ -78,13 +92,15 @@ def test_sweep_fused_grid_matches_jax_pallas():
     assert (coords_b[..., 1:] % 16 == 0).all() and n_real.sum() == 4
 
 
-def test_sweep_fused_on_reference_grid_matches_jax():
+@pytest.mark.parametrize("shape", [(21, 18, 35), (7, 13, 18),
+                                   (26, 13, 18)])
+def test_sweep_fused_on_reference_grid_matches_jax(shape):
     """A patch too small for 16-aligned strides: kernel D (plain version)
     runs on the reference grid, each batch's n_real its count of valid
     slots; JAX falls back to its XLA accumulate on the same grid."""
     jeng, teng = _engines(use_fused_accumulate=True)
     tree = plain_params(7)
-    v = _vol((21, 18, 35), 7)
+    v = _vol(shape, 7)
     ref = jeng.predict_segmentation_sweep(_jtree(tree), v)
     got = teng.predict_segmentation_sweep(tree, v)
     assert got.shape == ref.shape and (got == ref).mean() >= 0.999
@@ -98,6 +114,58 @@ def test_sweep_fused_on_reference_grid_matches_jax():
     with pytest.raises(ValueError):  # more tiles than one launch takes
         SlidingWindowEngine(torch.nn.Identity(), PATCH, K, tile_batch=33,
                             use_fused_accumulate=True, device="cpu")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sweep_fold_ensembles_match_jax(fused):
+    """Two folds through the rolling sweep, plain and with kernel D: the
+    logits are averaged over the folds before they are accumulated."""
+    kw = {"use_fused_accumulate": True} if fused else {}
+    jeng, teng = _engines(**kw)
+    trees = [plain_params(5), plain_params(6)]
+    v = _vol((26, 13, 18), 15)
+    got = teng.predict_segmentation_sweep(trees, v)
+    ref = jeng.predict_segmentation_sweep([_jtree(t) for t in trees], v)
+    assert got.shape == ref.shape == v.shape[1:]
+    assert (got == ref).mean() >= 0.999
+    assert (got == teng.predict_logits(trees, v).argmax(0)).mean() >= 0.999
+
+
+def test_reference_grid_sweep_matches_naive_accumulation():
+    """Odd extents, uneven rolls in x and a plane below the patch in y and
+    z (padded up to one tile, then cropped; no other sweep case has it):
+    against a plain python accumulation of every tile of the reference
+    grid (compute_steps_for_sliding_window's) into a whole-volume buffer."""
+    _, teng = _engines()
+    tree = plain_params(4)
+    shape = (23, 5, 11)
+    assert all(e < p_ for e, p_ in zip(shape[1:], PATCH[1:]))
+    v = _vol(shape, 13)
+    seg = teng.predict_segmentation_sweep(tree, v)
+    assert seg.shape == shape
+
+    p = PATCH
+    tight = [max(e, p_) for e, p_ in zip(shape, p)]
+    starts = compute_steps_for_sliding_window(tight, p, 0.5)
+    assert len(set(np.diff(starts[0]).tolist())) == 2  # uneven rolls
+    volp = np.zeros((1, *tight), np.float32)
+    volp[(slice(None),) + tuple(slice(0, e) for e in shape)] = v
+    g = compute_gaussian(tuple(p)).astype(np.float32)
+    acc = np.zeros((K, *tight), np.float32)
+    w = np.zeros(tight, np.float32)
+    net = teng.load_params(tree)[0]
+    with torch.no_grad():
+        for x0 in starts[0]:
+            for y0 in starts[1]:
+                for z0 in starts[2]:
+                    sl = (slice(x0, x0 + p[0]), slice(y0, y0 + p[1]),
+                          slice(z0, z0 + p[2]))
+                    tile = torch.from_numpy(volp[(slice(None),) + sl][None])
+                    out = net(tile).float().numpy()[0]
+                    acc[(slice(None),) + sl] += out * g
+                    w[sl] += g
+    ref = (acc / w).argmax(0)[tuple(slice(0, e) for e in shape)]
+    assert (seg == ref).mean() >= 0.999
 
 
 def test_fused_grid_at_the_bone_turbo_shape():
@@ -173,3 +241,32 @@ def test_predict_segmentation_dispatch():
     assert (logits_seg == seg).mean() >= 0.999
     with pytest.raises(ValueError):  # a 3D patch on a 2D image
         teng.predict_logits(tree, v[:, 0])
+
+
+def _s2d_engine(**kw):
+    net = make_s2d_engine_net(ARCH, K, 1, compute_dtype=torch.float32)
+    return SlidingWindowEngine(net, PATCH, K, compute_dtype=torch.float32,
+                               device="cpu", **kw)
+
+
+@pytest.mark.parametrize("make,kw,expected", [
+    (lambda **kw: _engines(**kw)[1], {}, "predict_segmentation_sweep"),
+    (lambda **kw: _engines(**kw)[1], {"use_fused_accumulate": True},
+     "predict_segmentation_sweep"),
+    (_s2d_engine, {}, "predict_segmentation_sweep_s2d"),
+    (_s2d_engine, {"mirror_axes": (0, 1, 2)}, "predict_segmentation_sweep"),
+], ids=["plain", "fused", "s2d", "s2d-mirrored"])
+def test_predict_segmentation_dispatch_above_budget(monkeypatch, make, kw,
+                                                    expected):
+    """Above the accumulator budget: the s2d sweep for an s2d network
+    without mirroring, else the rolling sweep, whose accumulate
+    ``use_fused_accumulate`` chooses."""
+    teng = make(max_accumulator_bytes=1, **kw)
+    taken = []
+    for name in ("predict_segmentation_sweep",
+                 "predict_segmentation_sweep_s2d", "predict_logits"):
+        monkeypatch.setattr(
+            engine_module.SlidingWindowEngine, name,
+            lambda self, params, volume, name=name: taken.append(name))
+    teng.predict_segmentation(plain_params(0), _vol((16, 16, 32), 0))
+    assert taken == [expected]

@@ -270,8 +270,9 @@ def test_plain_logits_count_as_pageable():
     assert t.host["d2h"][1] == 1
 
 
-def test_streamed_sweep_rows_count_as_pinned(monkeypatch):
-    """Every piece the row fetcher copies is counted, inside a d2h phase."""
+def test_streamed_host_route_rows_count_as_pinned(timed, monkeypatch):
+    """The streamed host route copies each chunk's packed rows out as the
+    chunk ends: every piece is counted, inside a d2h phase."""
     put = engine_module.RowFetcher.put
     pieces = []
 
@@ -279,13 +280,16 @@ def test_streamed_sweep_rows_count_as_pinned(monkeypatch):
         pieces.append(rows.nbytes)
         put(self, rows)
     monkeypatch.setattr(engine_module.RowFetcher, "put", spy)
-    eng = _plain_engine()
-    eng.timer = t = PhaseTimer()
-    vol = np.random.RandomState(4).randn(1, 26, 13, 18).astype(np.float32)
-    seg = eng.predict_segmentation_sweep_streamed(plain_params(0), vol)
+    monkeypatch.setenv("FNN_TURBO_STREAM", "1")
+    eng, tree, t = timed
+    pipe = TurboPipeline(eng, TurboConfig(**CFG), host_preprocess=True)
+    vol, spacing = _air_ct()
+    mask = pipe.predict_volume(tree, vol.astype(np.int16), spacing)
+    assert pipe.route == "streamed"
     assert len(pieces) == t.host["d2h"][1] > 1
-    assert t.counters == {"d2h_pinned_bytes": sum(pieces)}
-    assert sum(pieces) >= seg.nbytes
+    assert t.counters["d2h_pinned_bytes"] == sum(pieces)
+    assert "d2h_pageable_bytes" not in t.counters
+    assert sum(pieces) < mask.nbytes  # 6 bits of the 8
 
 
 class _Sampler:

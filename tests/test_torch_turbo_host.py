@@ -2,10 +2,10 @@
 plain versions) against the JAX package's, and against itself: the
 streamed lazy route and the fused host route each >= 0.999 with JAX's (the
 JAX side runs the same host library, the port's build, through its own
-ctypes binding); streamed bit-equal to fused with air skip off, without
-the crop, over a whole preprocessed grid and for two folds; air skipping
-confined to air; the host revert voxel-identical to the device revert;
-the 6-bit pack byte-equal to JAX's; float input on the device route."""
+ctypes binding); streamed bit-equal to fused with air skip off, for two
+folds and on an all-air CT; air skipping confined to air; the host
+revert voxel-identical to the device revert; the 6-bit pack byte-equal to
+JAX's; float input on the device route."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +17,7 @@ from fast_nnunet_tpu.inference.engine import SlidingWindowEngine as JaxEngine
 from fast_nnunet_tpu.inference.turbo import TurboConfig as JaxConfig
 from fast_nnunet_tpu.inference.turbo import TurboPipeline as JaxPipeline
 from fast_nnunet_tpu.inference.turbo import _unpack_mask6 as jax_unpack
+from fast_nnunet_tpu_torch.inference import turbo as turbo_module
 from fast_nnunet_tpu_torch.inference.engine import (PhaseTimer,
                                                     SlidingWindowEngine)
 from fast_nnunet_tpu_torch.inference.turbo import (TurboConfig, TurboPipeline,
@@ -26,6 +27,8 @@ from fast_nnunet_tpu_torch.ops import _build
 from .torch_port_common import (K, PATCH,  # noqa: F401  (fixture)
                                 no_persistent_compile_cache, s2d_pair)
 
+#: the port's own crop bucket, before small_crop_bucket patches it
+PIPELINE_CROP_BUCKET = turbo_module.CROP_BUCKET
 CFG = dict(patch_size=(16, 8, 8), target_spacing=(1.0, 1.1, 1.05),
            mean=127.475, std=318.463, lower_bound=-1024.0, upper_bound=3071.0,
            num_classes=K)
@@ -43,6 +46,14 @@ def nets():
                                sweep_acc_dtype=torch.float32, tile_batch=2,
                                device="cpu")
     return jeng, teng, tree, tree2
+
+
+@pytest.fixture(autouse=True)
+def small_crop_bucket(monkeypatch):
+    """The port's crop extents round up to 4 voxels, as the JAX pipeline's
+    in ``_jpipe``: the small test volumes then have off-bucket crop
+    boxes."""
+    monkeypatch.setattr(turbo_module, "CROP_BUCKET", 4)
 
 
 @pytest.fixture
@@ -78,9 +89,7 @@ def _air_vol():
 
 def _pipe(teng, **kw):
     kw.setdefault("host_preprocess", True)
-    p = TurboPipeline(teng, TurboConfig(**CFG), **kw)
-    p.crop_bucket = 4
-    return p
+    return TurboPipeline(teng, TurboConfig(**CFG), **kw)
 
 
 def _jpipe(jeng, **kw):
@@ -125,15 +134,19 @@ def test_fused_host_route_matches_jax(nets, jax_hostops, monkeypatch):
     assert (got == ref).mean() >= 0.999
 
 
-@pytest.mark.parametrize("env,folds", [
-    ({}, 1), ({"FNN_HOST_CROP": "0"}, 1), ({"FNN_LAZY_PRE": "0"}, 1),
-    ({}, 2)])
-def test_streamed_bit_equals_fused_host_route(nets, monkeypatch, env, folds):
+def _all_air_vol():
+    # no voxel above the clip floor: the crop box is the minimal one
+    return np.full((30, 44, 26), -1024, np.int16), (1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("make_vol,folds", [(_vol, 1), (_vol, 2),
+                                            (_all_air_vol, 1)],
+                         ids=["body-1", "body-2", "all_air-1"])
+def test_streamed_bit_equals_fused_host_route(nets, monkeypatch, make_vol,
+                                              folds):
     _, teng, tree, tree2 = nets
     params = tree if folds == 1 else [tree, tree2]
-    vol, spacing = _vol()
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+    vol, spacing = make_vol()
     monkeypatch.setenv("FNN_TURBO_STREAM", "1")
     pipe = _pipe(teng)
     seg_stream = pipe.predict_volume(params, vol, spacing)
@@ -143,6 +156,23 @@ def test_streamed_bit_equals_fused_host_route(nets, monkeypatch, env, folds):
     seg_fused = fused.predict_volume(params, vol, spacing)
     assert fused.route == "host"
     np.testing.assert_array_equal(seg_stream, seg_fused)
+
+
+def test_one_x_start_takes_the_fused_host_route(nets, jax_hostops):
+    """A target grid one patch deep along the chunk axis has one x start
+    and does not stream: the host route falls back to the fused one, as
+    JAX's does, and the masks agree."""
+    jeng, teng, tree, _ = nets
+    vol, spacing = _vol()
+    vol = np.ascontiguousarray(vol[:, 10:18])  # engine x: image axis 1
+    pipe = _pipe(teng)
+    got = pipe.predict_volume(tree, vol, spacing)
+    assert pipe.route == "host"
+    assert teng.s2d_sweep_plan(pipe._geometry(vol[None], spacing)[1])[1][0] \
+        == [0]
+    ref = _jpipe(jeng).predict_volume(
+        jax.tree_util.tree_map(jnp.asarray, tree), vol, spacing)
+    assert got.shape == vol.shape and (got == ref).mean() >= 0.999
 
 
 def test_unpacked_rows_when_labels_exceed_six_bits(nets, monkeypatch):
@@ -268,7 +298,8 @@ def test_float_input_takes_the_device_route(nets):
 
 
 
-def test_host_and_device_routes_agree_at_jax_pinned_setting(jax_hostops):
+def test_host_and_device_routes_agree_at_jax_pinned_setting(jax_hostops,
+                                                            monkeypatch):
     """tests/test_hostops.py's host/device check at its own setting (f32
     network of that arch and patch, flax-initialised from PRNGKey(0), that
     volume and seed, ``host_revert=True`` on the device route), on the
@@ -278,6 +309,7 @@ def test_host_and_device_routes_agree_at_jax_pinned_setting(jax_hostops):
     from fast_nnunet_tpu.models.s2d import make_s2d_engine_net as jax_s2d
     from fast_nnunet_tpu_torch.models.s2d import (make_s2d_engine_net,
                                                   params_from_jax)
+    monkeypatch.setattr(turbo_module, "CROP_BUCKET", PIPELINE_CROP_BUCKET)
     k, patch = 4, (8, 8, 16)
     arch = {"n_stages": 3, "features_per_stage": [8, 16, 32],
             "kernel_sizes": [[3, 3, 3]] * 3,
