@@ -777,7 +777,8 @@ def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
     """Run one main-path call with the sweep's kernel wrappers wrapped, and
     record real inputs: the c_call-th accumulate (the accumulator cloned
     before it), the b_call-th finalize (likewise), and the first stage-0
-    conv output (the largest InstanceNorm input). The wrappers are restored
+    conv output (the largest InstanceNorm input, without its bias, as the
+    block's norm takes it) with that conv's bias. The wrappers are restored
     afterwards. Returns (run's result, captured inputs)."""
     cap = {"c_n": 0, "b_n": 0}
     real_c = engine_module.s2d_accumulate
@@ -796,11 +797,15 @@ def capture_inputs(engine_module, net, run, c_call=8, b_call=4):
             cap["b"] = (acc.clone(), num_classes, n_rows, row_base, n_zero)
         return real_b(acc, num_classes, n_rows, row_base, n_zero)
 
-    def grab(module, inputs, output):  # returns None: output unchanged
-        if "a" not in cap:  # a copy: kernel E overwrites the conv output
-            cap["a"] = output.clone()
+    def grab(block, inputs, output):  # returns None: output unchanged
+        if "a" not in cap:  # the block's conv again: E overwrote its output
+            from torch.nn.functional import conv3d
+            conv = block.conv
+            cap["a"] = conv3d(
+                inputs[0], conv.weight, None, conv.stride, conv.padding)
+            cap["a_bias"] = conv.bias.float().clone()
 
-    hook = net.encoder["stage_0"]["block_0"].conv.register_forward_hook(grab)
+    hook = net.encoder["stage_0"]["block_0"].register_forward_hook(grab)
     engine_module.s2d_accumulate, engine_module.grouped_argmax = c, b
     try:
         out = run()
@@ -839,7 +844,8 @@ def kernel_checks(torch, cap, engine, launches, kb, kc):
         "name": "norm_apply", "route": "cuda",
         "source": "fast_nnunet_tpu_torch/csrc/norm_apply.cu",
         "replaces": None, "launches": launches["norm_apply"],
-        "tolerance": "bit-exact", **kernel_e_at(torch, cap["a"], 8)})
+        "tolerance": "bit-exact",
+        **kernel_e_at(torch, cap["a"], 8, conv_bias=cap["a_bias"])})
 
     # ---------------------------------------------------- kernel C (both modes)
     def c_pair(acc_in, g):
@@ -1068,24 +1074,21 @@ def attention_rows(torch, shape=PRIMUS_ATTENTION):
     return rows
 
 
-def kernel_e_at(torch, x, groups, slope=0.01):
-    """Kernel E on x (an s2d conv output) with its norm's moments from
-    kernel A, seeded scale and bias and the LeakyReLU, timed as kernel A is
-    (``ms`` from Python, ``device_ms`` from a CUDA graph, over copies beyond
-    the L2, out of place) and held against its plain version bit for bit.
-    The plain version is the torch sequence the s2d forward ran before the
-    kernel, so it is the ``library_ms`` too. Bytes: 2 B in and 2 B out per
-    bf16 element."""
+def kernel_e_at(torch, x, groups, slope=0.01, conv_bias=None):
+    """Kernel E on x (an s2d conv output, without its bias ``conv_bias``,
+    which E folds in) with its norm's moments from kernel A (shifted by the
+    bias as the s2d norm shifts them), seeded scale and bias and the
+    LeakyReLU, timed as kernel A is (``ms`` from Python, ``device_ms`` from
+    a CUDA graph, over copies beyond the L2, out of place) and held against
+    its plain version bit for bit. The plain version is the torch sequence
+    the s2d forward ran before the kernel, so it is the ``library_ms`` too.
+    Bytes: 2 B in and 2 B out per bf16 element, the bias or not."""
     import itertools
+    from fast_nnunet_tpu_torch.models.s2d import norm_moments
     from fast_nnunet_tpu_torch.ops import norm_apply as ke
-    from fast_nnunet_tpu_torch.ops import stats as ka
     B, C8 = x.shape[0], x.shape[1]
     c = C8 // groups
-    s, q = ka.spatial_sum_sumsq(x)
-    n = x[0, 0].numel() * groups
-    mean = s.reshape(B, groups, c).sum(1) / n
-    var = torch.clamp(q.reshape(B, groups, c).sum(1) / n - mean * mean,
-                      min=0.0)
+    mean, var = norm_moments(x, groups, 0, conv_bias)
     rstd = torch.rsqrt(var + 1e-5)
     g = torch.Generator().manual_seed(0)
     scale = (torch.rand(c, generator=g) + 0.5).to(x.device)
@@ -1096,32 +1099,37 @@ def kernel_e_at(torch, x, groups, slope=0.01):
 
     def run():
         return ke.norm_apply(next(cyc), mean, rstd, scale, bias, groups,
-                             slope, out=out)
+                             slope, out=out, conv_bias=conv_bias)
 
     ms = time_ms(torch, run, n=20)
     device_ms = time_graph_ms(torch, run)
     del xs, cyc, out
     torch.cuda.empty_cache()
-    got = ke.norm_apply(x, mean, rstd, scale, bias, groups, slope)
-    want = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, slope)
+    got = ke.norm_apply(x, mean, rstd, scale, bias, groups, slope,
+                        conv_bias=conv_bias)
+    want = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, slope,
+                               conv_bias=conv_bias)
     same = torch.equal(got, want)
     err = float((got.float() - want.float()).abs().max())
     del got
     check(same, f"kernel E at {tuple(x.shape)} differs from its plain "
           f"version (max abs err {err})")
     plain = time_ms(torch, lambda: ke.norm_apply_plain(
-        x, mean, rstd, scale, bias, groups, slope), n=5, warmup=1)
+        x, mean, rstd, scale, bias, groups, slope, conv_bias=conv_bias),
+        n=5, warmup=1)
     nbytes = 2 * x.numel() * x.element_size()
-    bms, bby = bound(nbytes, 5 * x.numel())
+    ops = (5 if conv_bias is None else 6) * x.numel()
+    bms, bby = bound(nbytes, ops)
     plan = ke.launch_plan(B * C8, x[0, 0].numel(), x.element_size(),
                           x.data_ptr() % 16 == 0)
     return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain, "library_ms": plain, "bound_ms": bms,
             "bound_by": bby, "bound_share": bms / ms,
             "device_bound_share": bms / device_ms, "bytes": nbytes,
-            "ops": 5 * x.numel(),
+            "ops": ops,
             "shape": f"x {tuple(x.shape)} {str(x.dtype).split('.')[-1]}, "
-                     f"groups {groups}, LeakyReLU {slope}",
+                     f"groups {groups}, LeakyReLU {slope}, conv bias "
+                     f"{conv_bias is not None}",
             "plan": dict(plan)}
 
 

@@ -1006,6 +1006,7 @@ class S2DChunks:
                 timer.count("tiles_kept", int(valid.sum()))
                 timer.count("tiles_forwarded", len(valid))
                 fused = norm_apply.launches
+                folded = norm_apply.bias_launches
             with eng.phase("forward"):
                 tiles = torch.stack([vol[:, x0:x0 + p0, y:y + py, z:z + pz]
                                      for _, y, z in self.coords_b[bi]])
@@ -1018,8 +1019,11 @@ class S2DChunks:
                             i, tiles, s2d_output=True).float()
                     out = out / len(self.nets)
                 if timer is not None:
-                    # kernel E's launches against the norms the folds ran
+                    # kernel E's launches, and those that added the conv
+                    # bias, against the norms the folds ran
                     timer.count("norms_fused", norm_apply.launches - fused)
+                    timer.count("conv_bias_folded",
+                                norm_apply.bias_launches - folded)
                     timer.count("norms", self.norms)
             with eng.phase("accumulate"):
                 if len(self.nets) == 1:

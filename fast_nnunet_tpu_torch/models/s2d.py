@@ -30,8 +30,9 @@ Pallas stats path, which the port always takes. Traced (``torch.export``,
 AOTInductor package (inference/aot.py) calls it back, so kernel A is never
 replaced by an Inductor reduction and each norm rounds as in eager. Eager
 calls the function itself (no dispatcher round trip) with the block's
-LeakyReLU: kernel E (ops/norm_apply.py) applies the moments, the affine and
-the activation in one pass over the conv output, in place. The op applies
+LeakyReLU: kernel E (ops/norm_apply.py) adds the conv bias and applies the
+moments, the affine and the activation in one pass over the conv output
+(computed without its bias), in place. The op applies
 no activation (kernel E without it; the LeakyReLU stays in the graph), so a
 package's graph is the same and each block gives the eager bits.
 """
@@ -141,57 +142,82 @@ def expand_seg_head(W: np.ndarray) -> np.ndarray:
 
 
 # ------------------------------------------------------------ instance norm
-def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  eps: float, groups: int = 1,
-                  stats_min_voxels: int = STATS_MIN_VOXELS,
-                  slope: Optional[float] = None) -> torch.Tensor:
-    """InstanceNorm over the spatial dims of an NCDHW tensor. With groups=8
-    the channels are (offset, logical) pairs and the statistics pool over
-    the offsets too — full-resolution InstanceNorm in the s2d layout.
-    ``scale``/``bias`` are per logical channel. At >= stats_min_voxels
-    spatial voxels the moments come from kernel A (one pass, f32); below it
-    from the two-pass mean/var of fast_nnunet_tpu's default path. Kernel E
-    (ops/norm_apply.py) applies them. With ``slope`` (a block's eager
-    forward) LeakyReLU(slope) follows in the same pass and the result
-    overwrites x, the block's conv output, which nothing else reads."""
+def norm_moments(x: torch.Tensor, groups: int = 1,
+                 stats_min_voxels: int = STATS_MIN_VOXELS,
+                 conv_bias: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, var), (B, C8 // groups) float32, of ``x + conv_bias`` over the
+    spatial dims (and with groups=8 over the offsets too). At >=
+    stats_min_voxels spatial voxels the sums come from kernel A (one pass,
+    f32) over x itself, and a conv bias b of channel ch shifts that
+    channel's row before the groups pool: sum + S·b, sumsq + b·(2·sum + S·b)
+    (exact in real arithmetic, whatever bias each offset carries); below it
+    the two-pass mean/var of fast_nnunet_tpu's default path over
+    ``x.float() + b``."""
     B, C8 = x.shape[0], x.shape[1]
     c = C8 // groups
     n_spatial = math.prod(x.shape[2:])
+    cb = None if conv_bias is None else conv_bias.float()
     if n_spatial >= stats_min_voxels:
         s, q = spatial_sum_sumsq(x)                          # (B, C8) f32
+        if cb is not None:
+            s, q = s + n_spatial * cb, q + cb * (2 * s + n_spatial * cb)
         n = n_spatial * groups
         mean = s.reshape(B, groups, c).sum(1) / n
         var = torch.clamp(q.reshape(B, groups, c).sum(1) / n - mean * mean,
                           min=0.0)
-    else:
-        x32 = x.float().reshape(B, C8, -1)
-        mean_c = x32.mean(-1)
-        var_c = x32.var(-1, correction=0)
-        if groups == 1:
-            mean, var = mean_c, var_c
-        else:
-            mean = mean_c.reshape(B, groups, c).mean(1)
-            var = ((var_c + mean_c * mean_c).reshape(B, groups, c).mean(1)
-                   - mean * mean)
+        return mean, var
+    x32 = x.float().reshape(B, C8, -1)
+    if cb is not None:
+        x32 = x32 + cb.reshape(1, C8, 1)
+    mean_c = x32.mean(-1)
+    var_c = x32.var(-1, correction=0)
+    if groups == 1:
+        return mean_c, var_c
+    mean = mean_c.reshape(B, groups, c).mean(1)
+    var = ((var_c + mean_c * mean_c).reshape(B, groups, c).mean(1)
+           - mean * mean)
+    return mean, var
+
+
+def instance_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float, groups: int = 1,
+                  stats_min_voxels: int = STATS_MIN_VOXELS,
+                  slope: Optional[float] = None,
+                  conv_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """InstanceNorm over the spatial dims of an NCDHW tensor. With groups=8
+    the channels are (offset, logical) pairs and the statistics pool over
+    the offsets too — full-resolution InstanceNorm in the s2d layout.
+    ``scale``/``bias`` are per logical channel. ``conv_bias`` (C8,), one per
+    channel of x, makes it the norm of ``x + conv_bias``: x is then a
+    convolution's output without its bias, which the moments
+    (:func:`norm_moments`) and kernel E (ops/norm_apply.py) take in f32
+    instead of a separate rounded add. With ``slope`` (a block's eager
+    forward) LeakyReLU(slope) follows in the same pass and the result
+    overwrites x, the block's conv output, which nothing else reads."""
+    mean, var = norm_moments(x, groups, stats_min_voxels, conv_bias)
     return norm_apply(x, mean, torch.rsqrt(var + eps), scale, bias, groups,
-                      slope, None if slope is None else x)
+                      slope, None if slope is None else x, conv_bias)
 
 
 @torch.library.custom_op("fnn_torch::s2d_instance_norm", mutates_args=())
 def instance_norm_op(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float, groups: int,
-                     stats_min_voxels: int) -> torch.Tensor:
+                     stats_min_voxels: int,
+                     conv_bias: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """:func:`instance_norm` as one dispatcher op: what a traced network
     (``torch.export``, an AOTInductor package, inference/aot.py) holds in
     place of the norm's arithmetic, so a package computes each norm with
-    the eager kernels (kernel A, kernel E without the activation) and its
-    masks follow the eager network's; Inductor's own reductions and fused
-    affine round differently."""
-    return instance_norm(x, scale, bias, eps, groups, stats_min_voxels)
+    the eager kernels (kernel A, kernel E without the activation, the conv
+    bias folded as in eager) and its masks follow the eager network's;
+    Inductor's own reductions and fused affine round differently."""
+    return instance_norm(x, scale, bias, eps, groups, stats_min_voxels,
+                         conv_bias=conv_bias)
 
 
 @instance_norm_op.register_fake
-def _(x, scale, bias, eps, groups, stats_min_voxels):
+def _(x, scale, bias, eps, groups, stats_min_voxels, conv_bias=None):
     return torch.empty_like(x)
 
 
@@ -209,7 +235,9 @@ class _Norm(nn.Module):
 class _Block(nn.Module):
     """conv -> InstanceNorm -> LeakyReLU; ``pre_pad`` is the s2d
     downsample's asymmetric (1, 0) padding, applied with F.pad before a
-    VALID conv (Conv3d only pads symmetrically)."""
+    VALID conv (Conv3d only pads symmetrically). The convolution runs
+    without its bias and the norm adds it in f32 (``conv_bias``): on cuDNN
+    torch would add it as one more bf16 pass over the conv output."""
 
     def __init__(self, cin: int, cout: int, kernel, stride, padding,
                  groups: int, eps: float, slope: float,
@@ -226,13 +254,16 @@ class _Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pre_pad is not None:
             x = F.pad(x, self.pre_pad)
-        x = self.conv(x)
+        conv = self.conv
+        x = F.conv3d(x, conv.weight, None, conv.stride, conv.padding)
         if torch.compiler.is_compiling():
             x = instance_norm_op(x, self.norm.weight, self.norm.bias,
-                                 self.eps, self.groups, self.stats_min_voxels)
+                                 self.eps, self.groups, self.stats_min_voxels,
+                                 conv.bias)
             return F.leaky_relu_(x, self.slope)
         return instance_norm(x, self.norm.weight, self.norm.bias, self.eps,
-                             self.groups, self.stats_min_voxels, self.slope)
+                             self.groups, self.stats_min_voxels, self.slope,
+                             conv.bias)
 
 
 class _SegHead(nn.Module):

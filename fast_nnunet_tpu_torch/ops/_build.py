@@ -68,10 +68,10 @@ SIGNATURES = {
     # x_lo, x_hi, y_lo, y_hi, stream
     "fnn_scatter_accumulate": [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                _i, _i, _i, _i, _i, _i, _i, _p],
-    # x, y, dtype, rows, S, C8, c, threads, chunks, vec, mean, rstd, scale,
-    # bias, act, slope, stream
+    # x, y, dtype, rows, S, C8, c, threads, chunks, vec, conv_bias, mean,
+    # rstd, scale, bias, act, slope, stream
     "fnn_norm_apply": [_p, _p, _i, _ll, _ll, _i, _i, _i, _i, _i, _p, _p, _p,
-                       _p, _i, ctypes.c_float, _p],
+                       _p, _p, _i, ctypes.c_float, _p],
     # q, q_sb, q_st, q_sh, k (same), v (same), out, lse, B, T, H, stream
     "fnn_attention_fwd": [_p, _ll, _ll, _ll] * 3 + [_p, _p, _i, _i, _i, _p],
     # q, k, v (each with its strides), o, dout, lse, dq, dk, dv, ws (the

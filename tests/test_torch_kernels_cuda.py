@@ -725,8 +725,9 @@ def test_served_study_keeps_the_tracer_totals(cuda_device):
     assert totals["count:d2h_pageable_bytes"] == mask.nbytes
     assert 0 < totals["count:tiles_kept"] <= totals["count:tiles_forwarded"]
     assert totals["count:tiles_forwarded"] % 4 == 0
-    # one kernel E launch per norm of every forward
+    # one kernel E launch per norm of every forward, each with its conv bias
     assert totals["count:norms_fused"] == totals["count:norms"] > 0
+    assert totals["count:conv_bias_folded"] == totals["count:norms"]
 
 
 # ------------------------------------------- slab-parallel sweeps (sharded)
@@ -830,6 +831,10 @@ def test_s2d_norm_op_bit_equals_the_eager_norm(cuda_device, shape):
     assert spatial_sum_sumsq.launches == n0 + 1
     want = instance_norm(x, scale, bias, 1e-5, 8, 4096)
     assert torch.equal(got, want) and got.dtype == torch.bfloat16
+    cb = torch.randn(shape[1], generator=g).to(cuda_device)
+    got = instance_norm_op(x, scale, bias, 1e-5, 8, 4096, cb)
+    assert torch.equal(got, instance_norm(x, scale, bias, 1e-5, 8, 4096,
+                                          conv_bias=cb))
 
 
 # ------------------------------------------- kernel E: the norm's apply
@@ -893,6 +898,59 @@ def test_norm_apply_misaligned_and_f32(cuda_device, dtype):
                                          0.01), want)
 
 
+@pytest.mark.parametrize("shape,groups", E_SHAPES)
+def test_norm_apply_with_conv_bias_bit_equals_plain(cuda_device, shape,
+                                                    groups):
+    """Kernel E with a conv bias folded in (one per channel of x) against
+    its plain version bit for bit at every serving norm shape, with and
+    without the LeakyReLU, out of place and in place; counted in
+    ``bias_launches``."""
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    x, mean, rstd, scale, bias = _e_inputs(shape, groups, cuda_device)
+    cb = (torch.randn(shape[1], generator=torch.Generator().manual_seed(1))
+          * 0.5).to(cuda_device)
+    for slope in (None, 0.01):
+        want = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, slope,
+                                   conv_bias=cb)
+        n0, b0 = ke.norm_apply.launches, ke.norm_apply.bias_launches
+        got = ke.norm_apply(x, mean, rstd, scale, bias, groups, slope,
+                            conv_bias=cb)
+        assert ke.norm_apply.launches == n0 + 1
+        assert ke.norm_apply.bias_launches == b0 + 1
+        assert torch.equal(got, want)
+    assert not torch.equal(want, ke.norm_apply_plain(
+        x, mean, rstd, scale, bias, groups, 0.01))
+    xi = x.clone()
+    got = ke.norm_apply(xi, mean, rstd, scale, bias, groups, 0.01, out=xi,
+                        conv_bias=cb)
+    assert got is xi and torch.equal(xi, want)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_norm_apply_conv_bias_misaligned_and_f32(cuda_device, dtype):
+    """The element path and the f32 path with a conv bias, bit for bit; a
+    -0 input stays -0 without one (no add of +0)."""
+    from fast_nnunet_tpu_torch.ops import norm_apply as ke
+    x, mean, rstd, scale, bias = _e_inputs((2, 16, 8, 8, 8), 8, cuda_device)
+    x = x.to(getattr(torch, dtype))
+    cb = torch.linspace(-1, 1, 16, device=cuda_device)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    xm = flat[1:].view(x.shape).copy_(x)
+    for v in (x, xm):
+        want = ke.norm_apply_plain(v, mean, rstd, scale, bias, 8, 0.01,
+                                   conv_bias=cb)
+        assert torch.equal(ke.norm_apply(v, mean, rstd, scale, bias, 8,
+                                         0.01, conv_bias=cb), want)
+    # -0 through a mean of +0, unit factors and a bias of -0 stays -0
+    z = torch.full_like(x, -0.0)
+    args = (torch.zeros_like(mean), torch.ones_like(rstd),
+            torch.ones_like(scale), torch.full_like(bias, -0.0), 8)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    got = ke.norm_apply(z, *args).view(bits)
+    assert torch.equal(got, z.view(bits))
+    assert torch.equal(got, ke.norm_apply_plain(z, *args).view(bits))
+
+
 STUDENT_ARCH = {"n_stages": 6, "features_per_stage": [16, 32, 64, 128, 160,
                                                       160],
                 "kernel_sizes": [[3, 3, 3]] * 6,
@@ -904,9 +962,10 @@ STUDENT_ARCH = {"n_stages": 6, "features_per_stage": [16, 32, 64, 128, 160,
 def test_s2d_forward_bit_equals_the_former_eager_norms(cuda_device,
                                                       monkeypatch):
     """The bone_turbo student's s2d forward at its tile batch and patch
-    (every serving norm shape): kernel E launched once per block, features
-    bit for bit those of the former eager block (conv, the norm's torch
-    passes, LeakyReLU)."""
+    (every serving norm shape): kernel E launched once per block, each with
+    its conv bias, features bit for bit those of the former eager block
+    with the bias folded as the contract says (conv without its bias, the
+    norm's torch passes on the biased activation, LeakyReLU)."""
     import torch.nn.functional as F
     from fast_nnunet_tpu_torch.models import s2d
     from fast_nnunet_tpu_torch.ops import norm_apply as ke
@@ -919,16 +978,18 @@ def test_s2d_forward_bit_equals_the_former_eager_norms(cuda_device,
     x = torch.randn(8, 1, 160, 96, 96, generator=torch.Generator(
         ).manual_seed(1)).to(cuda_device, torch.bfloat16)
     with torch.no_grad():
-        n0 = ke.norm_apply.launches
+        n0, b0 = ke.norm_apply.launches, ke.norm_apply.bias_launches
         got = net(x, return_features=True)
         assert ke.norm_apply.launches - n0 == net.norm_count() == 22
+        assert ke.norm_apply.bias_launches - b0 == 22
 
         def former_forward(self, v):
             if self.pre_pad is not None:
                 v = F.pad(v, self.pre_pad)
-            v = self.conv(v)
+            c = self.conv
+            v = F.conv3d(v, c.weight, None, c.stride, c.padding)
             v = former_norm(v, self.norm.weight, self.norm.bias, self.eps,
-                            self.groups, self.stats_min_voxels)
+                            self.groups, self.stats_min_voxels, c.bias)
             return F.leaky_relu_(v, self.slope)
 
         monkeypatch.setattr(s2d._Block, "forward", former_forward)

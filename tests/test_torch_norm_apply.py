@@ -2,8 +2,11 @@
 the plain version, the s2d norm that calls it and the s2d block's eager
 forward give the former torch sequence (f32 affine op by op, the cast, the
 in-place LeakyReLU) bit for bit, for groups 1 and 8 on either side of
-kernel A's gate; and the launch plan at every serving shape. The kernel is
-held against the plain version on the card (tests/test_torch_kernels_cuda.py).
+kernel A's gate, with and without a conv bias folded in (the sequence then
+runs on ``x.float() + b``); the moments of the biased activation; the block
+against the former conv + bias -> norm order; and the launch plan at every
+serving shape. The kernel is held against the plain version on the card
+(tests/test_torch_kernels_cuda.py).
 """
 import math
 
@@ -16,20 +19,30 @@ from fast_nnunet_tpu_torch.ops import norm_apply as ke
 from fast_nnunet_tpu_torch.ops.stats import spatial_sum_sumsq
 
 
-def former_norm(x, scale, bias, eps, groups, stats_min_voxels):
+def former_norm(x, scale, bias, eps, groups, stats_min_voxels,
+                conv_bias=None):
     """The s2d InstanceNorm as it was before kernel E, kept as the
-    yardstick: moments as today, then the affine as seven torch passes."""
+    yardstick: moments as today, then the affine as seven torch passes.
+    With ``conv_bias`` (C8,) it is the norm of ``x + conv_bias``: kernel A's
+    sums of x shifted row by row (sum + S b, sumsq + b (2 sum + S b)), or
+    the two passes over ``x.float() + b``, and the affine on
+    ``x.float() + b``."""
     B, C8 = x.shape[0], x.shape[1]
     c = C8 // groups
     n_spatial = math.prod(x.shape[2:])
+    cb = None if conv_bias is None else conv_bias.float()
     if n_spatial >= stats_min_voxels:
         s, q = spatial_sum_sumsq(x)
+        if cb is not None:
+            s, q = s + n_spatial * cb, q + cb * (2 * s + n_spatial * cb)
         n = n_spatial * groups
         mean = s.reshape(B, groups, c).sum(1) / n
         var = torch.clamp(q.reshape(B, groups, c).sum(1) / n - mean * mean,
                           min=0.0)
     else:
         x32 = x.float().reshape(B, C8, -1)
+        if cb is not None:
+            x32 = x32 + cb.reshape(1, C8, 1)
         mean_c = x32.mean(-1)
         var_c = x32.var(-1, correction=0)
         if groups == 1:
@@ -38,14 +51,24 @@ def former_norm(x, scale, bias, eps, groups, stats_min_voxels):
             mean = mean_c.reshape(B, groups, c).mean(1)
             var = ((var_c + mean_c * mean_c).reshape(B, groups, c).mean(1)
                    - mean * mean)
-    shape = (B, C8) + (1,) * (x.dim() - 2)
+    v = x if cb is None else x.float() + cb.reshape(
+        (1, C8) + (1,) * (x.dim() - 2))
+    return former_apply(v, mean, torch.rsqrt(var + eps), scale, bias,
+                        groups).to(x.dtype)
+
+
+def former_apply(v, mean, rstd, scale, bias, groups):
+    """The former affine on moments given: seven torch passes over v, the
+    f32 result (the caller casts)."""
+    B, C8 = v.shape[0], v.shape[1]
+    shape = (B, C8) + (1,) * (v.dim() - 2)
     m = mean.repeat(1, groups).reshape(shape)
-    r = torch.rsqrt(var + eps).repeat(1, groups).reshape(shape)
-    sc = scale.float().repeat(groups).reshape((1, C8) + (1,) * (x.dim() - 2))
+    r = rstd.repeat(1, groups).reshape(shape)
+    sc = scale.float().repeat(groups).reshape((1, C8) + (1,) * (v.dim() - 2))
     bi = bias.float().repeat(groups).reshape(sc.shape)
-    y = x.to(torch.float32, copy=True)
+    y = v.to(torch.float32, copy=True)
     y.sub_(m).mul_(r).mul_(sc).add_(bi)
-    return y.to(x.dtype)
+    return y
 
 
 def _inputs(shape, groups, dtype, seed):
@@ -84,22 +107,118 @@ def test_plain_bit_equals_the_former_norm_and_activation(groups, size, dtype):
     assert (want < 0).any() and (want > 0).any()
 
 
+def _conv_bias(C8, seed):
+    """A conv bias of C8 channels; with groups=8 each offset's copy of a
+    logical channel carries its own value, so the pooled variance moves."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(C8, generator=g) * 2
+
+
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", sorted(SIZES))
 @pytest.mark.parametrize("groups", [1, 8])
-def test_block_forward_bit_equals_the_former_sequence(groups):
-    """An s2d block's eager forward: conv, then the fused norm in place,
-    equals conv -> former norm -> F.leaky_relu_."""
+def test_plain_apply_with_and_without_conv_bias(groups, size, dtype, folded):
+    """norm_apply_plain on the moments of the activation: without a conv
+    bias the former sequence on x, with one the former sequence on
+    ``x.float() + b``, bit for bit; the s2d norm in place gives the same."""
+    shape = (2, 16) + SIZES[size]
+    x, scale, bias = _inputs(shape, groups, dtype, seed=13)
+    cb = _conv_bias(16, seed=14) if folded else None
+    gate = s2d.STATS_MIN_VOXELS
+    mean, var = s2d.norm_moments(x, groups, gate, cb)
+    rstd = torch.rsqrt(var + 1e-5)
+    v = x if cb is None else x.float() + cb.reshape(1, 16, 1, 1, 1)
+    want = F.leaky_relu_(former_apply(v, mean, rstd, scale, bias,
+                                      groups).to(dtype), 0.01)
+    got = ke.norm_apply_plain(x, mean, rstd, scale, bias, groups, 0.01,
+                              conv_bias=cb)
+    assert got.dtype == dtype and torch.equal(got, want)
+    xi = x.clone()
+    got = s2d.instance_norm(xi, scale, bias, 1e-5, groups, gate, slope=0.01,
+                            conv_bias=cb)
+    assert got.data_ptr() == xi.data_ptr() and torch.equal(got, want)
+    assert torch.equal(got, F.leaky_relu_(former_norm(
+        x, scale, bias, 1e-5, groups, gate, cb), 0.01))
+    assert (want < 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", sorted(SIZES))
+def test_moments_of_the_biased_activation(size, dtype):
+    """groups=8, the 8 offsets of each logical channel under different conv
+    biases: the moments (kernel A's sums shifted, or two passes) are the
+    biased activation's, computed directly in float64, to f32 rounding; and
+    they differ from the bias-free ones by far more, so the bias cannot be
+    dropped."""
+    shape = (2, 16) + SIZES[size]
+    x, _, _ = _inputs(shape, 8, dtype, seed=21)
+    cb = _conv_bias(16, seed=22)
+    mean, var = s2d.norm_moments(x, 8, s2d.STATS_MIN_VOXELS, cb)
+    v = (x.double() + cb.double().reshape(1, 16, 1, 1, 1)).reshape(
+        2, 8, 2, -1).transpose(1, 2).reshape(2, 2, -1)
+    m64, v64 = v.mean(-1), v.var(-1, correction=0)
+    sq = (v * v).mean(-1)          # the scale of the one-pass formula
+    assert mean.dtype == var.dtype == torch.float32
+    assert ((mean.double() - m64).abs() <= 1e-6 * sq.sqrt()).all()
+    assert ((var.double() - v64).abs() <= 1e-5 * sq).all()
+    mean0, var0 = s2d.norm_moments(x, 8, s2d.STATS_MIN_VOXELS)
+    assert ((var0.double() - v64).abs() > 0.1 * v64).any()
+    assert ((mean0.double() - m64).abs() > 0.05).any()
+
+
+def _block(groups, dtype, gate):
     torch.manual_seed(5)
     blk = s2d._Block(16, 16, (3, 3, 3), (1, 1, 1), (1, 1, 1), groups=groups,
                      eps=1e-5, slope=0.01).eval()
     blk.norm.weight.data = torch.rand(16 // groups) + 0.5
     blk.norm.bias.data = torch.randn(16 // groups)
+    blk.conv.bias.data = torch.randn(16)
+    blk.stats_min_voxels = gate
+    return blk.to(dtype)
+
+
+@pytest.mark.parametrize("groups", [1, 8])
+def test_block_forward_bit_equals_the_former_sequence(groups):
+    """An s2d block's eager forward: the conv without its bias, then the
+    fused norm with the conv bias folded in, in place, equals conv (no
+    bias) -> former norm of the biased activation -> F.leaky_relu_."""
+    blk = _block(groups, torch.float32, s2d.STATS_MIN_VOXELS)
     x = torch.randn(2, 16, 6, 8, 10)
     with torch.no_grad():
         got = blk(x)
+        conv = F.conv3d(x, blk.conv.weight, None, 1, 1)
+        want = F.leaky_relu_(former_norm(
+            conv, blk.norm.weight, blk.norm.bias, 1e-5, groups,
+            blk.stats_min_voxels, blk.conv.bias), 0.01)
+    assert torch.equal(got, want)
+
+
+# (rtol, atol) of the folded block against conv + bias -> norm: f32 rounding
+# alone, and in bf16 the one rounding of conv + bias that folding removes
+# (half a bf16 step of the biased value, 2^-9 relative, times rstd * scale
+# after the norm) plus one bf16 step of the output
+FOLD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -5)}
+
+
+@pytest.mark.parametrize("gate", [0, 1 << 30], ids=["kernel_a", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 8])
+def test_block_forward_matches_the_conv_bias_then_norm_order(groups, dtype,
+                                                            gate):
+    """The folded block against the former order, the conv with its bias
+    (rounded to the compute dtype), then the norm, then LeakyReLU: the same
+    function, within FOLD_TOL."""
+    blk = _block(groups, dtype, gate)
+    x = torch.randn(2, 16, 6, 8, 10).to(dtype)
+    with torch.no_grad():
+        got = blk(x).float()
         want = F.leaky_relu_(former_norm(
             blk.conv(x), blk.norm.weight, blk.norm.bias, 1e-5, groups,
-            blk.stats_min_voxels), 0.01)
-    assert torch.equal(got, want)
+            gate), 0.01).float()
+    rtol, atol = FOLD_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    assert (want.abs() > 1).any()
 
 
 def test_plain_writes_out_and_leaves_x_out_of_place():

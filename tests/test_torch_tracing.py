@@ -229,6 +229,18 @@ def test_norm_counters_count_every_block_of_every_forward(timed):
     assert tot.get("count:norms_fused", 0) == 0
 
 
+def test_conv_bias_folded_counts_every_forward(timed):
+    """``conv_bias_folded`` (kernel E's launches that took a block's conv
+    bias) is counted in every forward, 0 on the CPU where no norm launches
+    the kernel (on the card it equals ``norms``:
+    tests/test_torch_kernels_cuda.py), so its reader always finds it."""
+    eng, tree, t = timed
+    pipe = TurboPipeline(eng, TurboConfig(**CFG), air_skip=True)
+    pipe.predict_volume(tree, *_air_ct())
+    tot = t.totals()
+    assert tot["count:conv_bias_folded"] == 0 < tot["count:norms"]
+
+
 def test_mask_bytes_count_as_pageable_on_the_device_route(timed):
     eng, tree, t = timed
     mask = TurboPipeline(eng, TurboConfig(**CFG)).predict_volume(

@@ -364,6 +364,24 @@ def test_norm_ops_opcheck_and_eager_results(op, shape, dt):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape,dt", [((2, 16, 8, 4, 4), torch.float32),
+                                      ((1, 8, 6, 8, 4), torch.bfloat16)])
+def test_s2d_norm_op_with_conv_bias_opcheck_and_eager_results(shape, dt):
+    """``fnn_torch::s2d_instance_norm`` with a conv bias (the one an s2d
+    block's traced forward passes it) passes ``opcheck`` and returns the
+    eager norm's values bit for bit."""
+    from fast_nnunet_tpu_torch.models import s2d
+    args = _norm_args("s2d_instance_norm", shape, dt, seed=7)
+    cb = torch.tensor(np.random.RandomState(8).randn(shape[1]),
+                      dtype=torch.float32)
+    torch.library.opcheck(s2d.instance_norm_op, args + (cb,))
+    got = torch.ops.fnn_torch.s2d_instance_norm(*args, cb)
+    want = s2d.instance_norm(*args, conv_bias=cb)
+    assert got.dtype == want.dtype == dt
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not torch.equal(got, s2d.instance_norm(*args))
+
+
 def test_s2d_norm_takes_kernel_a_eagerly_and_its_op_when_traced(
         monkeypatch):
     """The s2d InstanceNorm calls kernel A's wrapper in eager (values as
